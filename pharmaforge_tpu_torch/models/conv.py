@@ -1,12 +1,22 @@
 """Dense mask-batched heterogeneous GVP graph convolution.
 
-Port of the plain (unfused) path of `pharmaforge_tpu/models/conv.py`
-(`EdgeMessageChain` :157-360, `_aggregate` :450, `_scatter_aggregate`
-:363, `GVPMultiEdgeConv` :572). Each edge type runs the reference message
-function -- the GVP chain on (src scalars ++ RBF(d), unit direction ++ src
-vectors) -- over a static-shape edge tensor, then reduces under the edge
-mask. This is the plain concatenation form; the JAX package's hoisted
-per-node form is the same math reassociated.
+Port of `pharmaforge_tpu/models/conv.py` (`EdgeMessageChain` :157-360,
+`_aggregate` :450, `_scatter_aggregate` :363, `GVPMultiEdgeConv` :572).
+Each edge type runs the reference message function -- the GVP chain on
+(src scalars ++ RBF(d), unit direction ++ src vectors) -- over a
+static-shape edge tensor, then reduces under the edge mask. This is the
+plain concatenation form; the JAX package's hoisted per-node form is the
+same math reassociated.
+
+The prot-prot chain of the middle convs (nonzero source vectors, per-copy
+prot state) takes the fused branch when `fused_pp` is set: node tables
+`h_src @ W1_h` and `v_src @ Wh[1:]`, then one `ops/pp_message` call (the
+K2 kernel on the card) for the gather, the chain and the masked K-sum,
+with the edge descriptors kept at pocket-group level.
+
+`compute_dtype` ("float32" or "bfloat16") is the dtype of the
+edge-message chains of all four edge types; aggregation, the residual
+stream, layer norms and node updates stay fp32 (JAX conv.py:583-586).
 
 Where the JAX package scatters and gathers with one-hot matmuls (a TPU
 workaround), the port uses indexed loads and `scatter_add_`.
@@ -29,6 +39,10 @@ from pharmaforge_tpu_torch.models.gvp import (
     GVPDropout,
     GVPLayerNorm,
     gvp_specs,
+)
+from pharmaforge_tpu_torch.ops.pp_message import (
+    COMPUTE_DTYPES,
+    fused_message_agg,
 )
 
 # canonical edge types (src_ntype, name, dst_ntype), reference
@@ -76,8 +90,10 @@ def message_specs(n: int, vector_size: int, scalar_size: int,
 
 
 def edge_messages(chain: GVPChain, h_src, v_src, edge,
-                  src_vectors_zero: bool = False):
-    """Per-edge messages (scalars [B,Nd,M,S], vectors [B,Nd,M,V,3]).
+                  src_vectors_zero: bool = False,
+                  dtype: torch.dtype = torch.float32):
+    """Per-edge messages (scalars [B,Nd,M,S], vectors [B,Nd,M,V,3]) in
+    `dtype`.
 
     The source rows are gathered at `edge.idx` (gathered layout), are the
     layout row itself (ReverseEdgeData) or span the whole source set (full
@@ -100,8 +116,8 @@ def edge_messages(chain: GVPChain, h_src, v_src, edge,
             v_src[:, None].expand(-1, nd, -1, -1, -1)
     if v_g is None:
         v_g = h_g.new_zeros(h_g.shape[:-1] + v_src.shape[-2:])
-    sca_in = torch.cat([h_g, edge.d_rbf], dim=-1)
-    vec_in = torch.cat([edge.x_dir[..., None, :], v_g], dim=-2)
+    sca_in = torch.cat([h_g, edge.d_rbf], dim=-1).to(dtype)
+    vec_in = torch.cat([edge.x_dir[..., None, :], v_g], dim=-2).to(dtype)
     return chain((sca_in, vec_in))
 
 
@@ -149,13 +165,26 @@ class GVPMultiEdgeConv(nn.Module):
     `update_ntypes` lists the destination node types this conv updates.
     The last conv only feeds the pharm noise head, so it is built with
     ("pharm",): its prot-side message and update modules -- the dead prot
-    tail -- do not exist."""
+    tail -- do not exist.
+
+    `fused_pp`: False runs every edge type on the plain path; True, "auto"
+    or "interpret" (the JAX package's values) run the prot-prot chain
+    through `ops.pp_message.fused_message_agg` wherever the JAX package
+    does (a gathered pp edge, nonzero source vectors, no pocket-group
+    dedup: the middle convs). `compute_dtype` is the edge-message chains'
+    dtype."""
 
     def __init__(self, scalar_size: int = 128, vector_size: int = 16,
                  n_message_gvps: int = 1, n_update_gvps: int = 1,
                  rbf_dim: int = 16, message_norm=10, dropout: float = 0.0,
-                 update_ntypes: Tuple[str, ...] = NTYPES):
+                 update_ntypes: Tuple[str, ...] = NTYPES,
+                 compute_dtype: str = "float32", fused_pp=False):
         super().__init__()
+        self.scalar_size, self.vector_size = scalar_size, vector_size
+        self.rbf_dim = rbf_dim
+        self.compute_dtype = compute_dtype
+        self.dtype = COMPUTE_DTYPES[compute_dtype]
+        self.fused_pp = bool(fused_pp)
         self.update_ntypes = tuple(update_ntypes)
         self.use_mean, self.norm_values = norm_mode(message_norm)
         self.edge_message_fns = nn.ModuleDict({
@@ -170,6 +199,33 @@ class GVPMultiEdgeConv(nn.Module):
         self.update_layer_norms = nn.ModuleDict({
             nt: GVPLayerNorm(scalar_size) for nt in self.update_ntypes})
         self.dropout = GVPDropout(dropout)
+
+    def _fused_pp(self, chain: GVPChain, h_src, v_src, ed):
+        """(s_agg, v_agg, count) of the pp edge through the fused message
+        chain: the node tables in the compute dtype (JAX
+        conv.py:252-255), one `fused_message_agg` call on the (possibly
+        pocket-group-level) edge, then the plain path's normalization
+        with counts from the full-width mask repeated over the copies
+        (:1014-1021)."""
+        dt, s = self.dtype, self.scalar_size
+        copies = getattr(ed, "copies", 1)
+        g0 = chain[0]
+        w1_h = g0.to_feats_out[0].weight[:, :s].T.to(dt)
+        pre_s = h_src.to(dt) @ w1_h                          # [B,P,S]
+        vh = torch.einsum("bpvc,vh->bpch", v_src.to(dt),
+                          g0.Wh[1:].to(dt))                  # [B,P,3,H0]
+        s_agg, v_agg = fused_message_agg(
+            pre_s, vh.unbind(2), ed, chain, scalar_size=s,
+            vector_size=self.vector_size, rbf_dim=self.rbf_dim,
+            compute_dtype=self.compute_dtype, copies=copies)
+        cnt = torch.sum(ed.mask.to(torch.float32), dim=2)
+        if copies > 1:
+            cnt = torch.repeat_interleave(cnt, copies, dim=0)
+        if self.use_mean:
+            denom = torch.clamp(cnt, min=1.0)
+            s_agg = s_agg / denom[..., None]
+            v_agg = v_agg / denom[..., None, None]
+        return s_agg, v_agg, cnt
 
     def forward(self, node_feats: Dict[str, tuple],
                 node_masks: Dict[str, torch.Tensor], bundle: Dict[str, object],
@@ -193,6 +249,9 @@ class GVPMultiEdgeConv(nn.Module):
             ed = bundle[ename]
             group = pp_src_group_size if ename == "pp" else 1
             b_full = node_masks[dst_nt].shape[0]
+            # the JAX package's gate (conv.py:850-852)
+            fused = (self.fused_pp and ename == "pp" and ed.idx is not None
+                     and not src_vectors_zero and group == 1)
             if isinstance(ed, GroupedEdgeData):
                 if group > 1:
                     if ed.copies != group:
@@ -200,7 +259,7 @@ class GVPMultiEdgeConv(nn.Module):
                             f"grouped pp edge copies {ed.copies} != "
                             f"pp_src_group_size {group}")
                     ed = ed.as_edge_data()
-                else:
+                elif not fused:
                     ed = ed.expand()
             if group > 1:
                 if not src_vectors_zero:
@@ -220,8 +279,14 @@ class GVPMultiEdgeConv(nn.Module):
                 if ed.mask.shape[0] != g:
                     ed = EdgeData(*(first(a) for a in ed))
 
-            s_msg, v_msg = edge_messages(self.edge_message_fns["_".join(etype)],
-                                         h_src, v_src, ed, src_vectors_zero)
+            chain = self.edge_message_fns["_".join(etype)]
+            if fused:
+                self._add(agg, counts, dst_nt,
+                          *self._fused_pp(chain, h_src, v_src, ed))
+                continue
+            s_msg, v_msg = edge_messages(chain, h_src, v_src, ed,
+                                         src_vectors_zero, self.dtype)
+            s_msg, v_msg = s_msg.float(), v_msg.float()
             if isinstance(ed, ReverseEdgeData):
                 s_agg, v_agg, cnt = _scatter_aggregate(s_msg, v_msg, ed,
                                                        self.use_mean)
@@ -231,12 +296,7 @@ class GVPMultiEdgeConv(nn.Module):
             if group > 1:
                 s_agg, v_agg, cnt = (torch.repeat_interleave(a, group, dim=0)
                                      for a in (s_agg, v_agg, cnt))
-            if dst_nt in agg:
-                agg[dst_nt] = (agg[dst_nt][0] + s_agg, agg[dst_nt][1] + v_agg)
-                counts[dst_nt] = counts[dst_nt] + cnt
-            else:
-                agg[dst_nt] = (s_agg, v_agg)
-                counts[dst_nt] = cnt
+            self._add(agg, counts, dst_nt, s_agg, v_agg, cnt)
 
         out: Dict[str, tuple] = {}
         for nt in NTYPES:
@@ -266,3 +326,13 @@ class GVPMultiEdgeConv(nn.Module):
             # padded slots stay exactly zero
             out[nt] = (h * mask[..., None], x, v * mask[..., None, None])
         return out
+
+    @staticmethod
+    def _add(agg, counts, nt, s_agg, v_agg, cnt) -> None:
+        """Sum one edge type's aggregates into destination type `nt`."""
+        if nt in agg:
+            agg[nt] = (agg[nt][0] + s_agg, agg[nt][1] + v_agg)
+            counts[nt] = counts[nt] + cnt
+        else:
+            agg[nt] = (s_agg, v_agg)
+            counts[nt] = cnt

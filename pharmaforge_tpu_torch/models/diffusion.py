@@ -28,6 +28,7 @@ from pharmaforge_tpu_torch.models.edges import GroupedEdgeData, build_pp_edge
 from pharmaforge_tpu_torch.models.gvp import reset_parameters_
 from pharmaforge_tpu_torch.models.schedules import make_gamma_table
 from pharmaforge_tpu_torch.ops.geometry import masked_com
+from pharmaforge_tpu_torch.ops.pp_message import COMPUTE_DTYPES
 
 
 def sigma_of_gamma(gamma: torch.Tensor) -> torch.Tensor:
@@ -58,12 +59,13 @@ class DiffusionConfig:
     defaults of the JAX package's `DiffusionConfig`, so one YAML config
     builds both.
 
-    This slice of the port computes the full-width path whatever
-    `compact_prot_tail`, `dedup_prot_encoder` and `precompute_step_tables`
-    say (the JAX package documents all three as exact reorderings of the
-    same math). `fused_pp` (other than for models without middle convs),
-    `compute_dtype="bfloat16"` and the correction path (`pp_k_out`) are
-    not ported yet and raise NotImplementedError."""
+    The port computes the full-width path whatever `compact_prot_tail`,
+    `dedup_prot_encoder` and `precompute_step_tables` say (the JAX
+    package documents all three as exact reorderings of the same math).
+    `fused_pp` other than False runs the middle convs' prot-prot chain
+    through the fused kernel (`ops/pp_message.py`); `compute_dtype` is
+    "float32" or "bfloat16" (the edge-message chains). The correction path
+    (`pp_k_out`) is not ported yet and raises NotImplementedError."""
 
     pharm_nf: int = 6
     rec_nf: int = 11
@@ -126,20 +128,11 @@ class DiffusionConfig:
         return cls(**kwargs)
 
     def check_supported(self) -> None:
-        """Raise NotImplementedError for options this slice lacks."""
-        if self.compute_dtype != "float32":
+        """Raise NotImplementedError for options the port lacks."""
+        if self.compute_dtype not in COMPUTE_DTYPES:
             raise NotImplementedError(
-                f"compute_dtype={self.compute_dtype!r}: only float32 is "
-                f"ported")
-        # the JAX package runs the fused pp-message kernel on the middle
-        # convs (n_convs >= 3) when fused_pp is on or "auto"; that kernel
-        # is not ported yet
-        if self.fused_pp not in (False, "auto") or (
-                self.fused_pp == "auto" and self.n_convs >= 3):
-            raise NotImplementedError(
-                f"fused_pp={self.fused_pp!r} with n_convs={self.n_convs}: "
-                f"the fused pp-message kernel is not ported yet (set "
-                f"fused_pp=False for the plain path)")
+                f"compute_dtype={self.compute_dtype!r}: the port has "
+                f"{sorted(COMPUTE_DTYPES)}")
 
     def make_dynamics(self) -> PharmRecDynamics:
         return PharmRecDynamics(
@@ -157,6 +150,8 @@ class DiffusionConfig:
             ff_k=self.ff_k,
             pf_k=self.pf_k,
             prune_dead_prot_tail=self.prune_dead_prot_tail,
+            compute_dtype=self.compute_dtype,
+            fused_pp=self.fused_pp,
         )
 
 

@@ -84,7 +84,11 @@ class PharmRecDynamics(nn.Module):
                  n_message_gvps: int = 3, n_update_gvps: int = 2,
                  n_noise_gvps: int = 3, dropout: float = 0.0,
                  ff_k: int = 0, pf_k: int = 0,
-                 prune_dead_prot_tail: bool = True):
+                 prune_dead_prot_tail: bool = True,
+                 compute_dtype: str = "float32", fused_pp=False):
+        """`compute_dtype` and `fused_pp` go to every conv (the
+        edge-message chains' dtype; the fused prot-prot branch of the
+        middle convs)."""
         super().__init__()
         self.vector_size = vector_size
         self.cutoffs = dict(graph_cutoffs)
@@ -101,7 +105,8 @@ class PharmRecDynamics(nn.Module):
                 n_message_gvps=n_message_gvps, n_update_gvps=n_update_gvps,
                 message_norm=message_norm, dropout=dropout,
                 update_ntypes=("pharm",) if last and prune_dead_prot_tail
-                else ("pharm", "prot")))
+                else ("pharm", "prot"),
+                compute_dtype=compute_dtype, fused_pp=fused_pp))
         self.noise_predictor = PharmRecGVP(convs, NoisePredictionBlock(
             in_scalar_dim=s, out_scalar_dim=n_pharm_scalars,
             vector_size=vector_size, n_gvps=n_noise_gvps))

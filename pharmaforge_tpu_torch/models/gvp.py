@@ -62,12 +62,21 @@ class GVP(nn.Module):
                 w.uniform_(-bound, bound, generator=generator)
 
     def forward(self, data: GVPData) -> GVPData:
+        """Runs in the dtype of `feats`: the weights are cast to it, the
+        channel norms are taken in fp32 and cast back (the JAX package's
+        bf16 edge-message chains, conv.py:229-236, 357)."""
         feats, vectors = data
-        vh = torch.einsum("...vc,vh->...hc", vectors, self.Wh)
-        vu = torch.einsum("...hc,hu->...uc", vh, self.Wu)
-        sh = norm_no_nan(vh)
-        feats_out = self.to_feats_out(torch.cat([feats, sh], dim=-1))
-        gating = self.scalar_to_vector_gates(feats_out)
+        dt = feats.dtype
+        vh = torch.einsum("...vc,vh->...hc", vectors, self.Wh.to(dt))
+        vu = torch.einsum("...hc,hu->...uc", vh, self.Wu.to(dt))
+        sh = norm_no_nan(vh.float()).to(dt)
+        lin, act = self.to_feats_out
+        feats_out = act(nn.functional.linear(
+            torch.cat([feats, sh], dim=-1), lin.weight.to(dt),
+            lin.bias.to(dt)))
+        gates = self.scalar_to_vector_gates
+        gating = nn.functional.linear(feats_out, gates.weight.to(dt),
+                                      gates.bias.to(dt))
         return feats_out, self.vectors_activation(gating)[..., None] * vu
 
 

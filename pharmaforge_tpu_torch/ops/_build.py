@@ -3,9 +3,9 @@
 Each `csrc/<name>.cu` exposes a plain C interface. It is compiled with
 `nvcc` for Hopper (`sm_90a`) into
 `build/pharmaforge_tpu_torch/<name>-<hash>.so` at the checkout's root,
-keyed on the source bytes and the flags, and loaded with `ctypes`. The
-first call in a fresh checkout builds; later calls reuse the library.
-A missing `nvcc` or a failed build raises.
+keyed on the source bytes and that kernel's flags, and loaded with
+`ctypes`. The first call in a fresh checkout builds; later calls reuse
+the library. A missing `nvcc` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -22,11 +22,18 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "pharmaforge_tpu_torch"
 
-# --fmad=false: no multiply-add contraction, so float arithmetic rounds
-# after every operation exactly as the plain PyTorch versions do
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+# per-kernel flags. knn_select: --fmad=false, no multiply-add contraction,
+# so its distances round after every operation exactly as the plain
+# version does (it is held bit-equal). pp_message is held to a tolerance
+# and keeps fused multiply-adds.
+KERNEL_FLAGS = {"knn_select": ("--fmad=false",), "pp_message": ()}
+
+
+def nvcc_flags(name: str) -> tuple:
+    """The full nvcc flag list for `csrc/<name>.cu`."""
+    return NVCC_FLAGS + KERNEL_FLAGS[name]
 
 
 def nvcc_path() -> str:
@@ -45,7 +52,7 @@ def library_path(name: str) -> Path:
     """Where `csrc/<name>.cu` builds to, keyed on its source and flags."""
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(nvcc_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -59,7 +66,7 @@ def build(name: str) -> Path:
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+    cmd = [nvcc, *nvcc_flags(name), "-o", str(tmp),
            str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)

@@ -191,11 +191,12 @@ def test_pocket_sampler_stacked_sweep(rng):
 
 
 def test_unported_options_raise():
+    with pytest.raises(NotImplementedError):
+        small_model(compute_dtype="float16")
+    # bf16 edge chains and the fused pp branch are ported
     for kw in (dict(compute_dtype="bfloat16"), dict(fused_pp=True),
-               dict(n_convs=4)):
-        with pytest.raises(NotImplementedError):
-            small_model(**kw)
-    small_model(n_convs=4, fused_pp=False)
+               dict(n_convs=4), dict(n_convs=4, fused_pp=False)):
+        small_model(**kw)
     batch, noise, _ = chain_inputs(np.random.default_rng(0), t_steps=12)
     with pytest.raises(NotImplementedError):
         small_model().sample_given_receptor(batch, noise=noise, pp_k_out=8)

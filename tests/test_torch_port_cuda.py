@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port on the card: the CUDA kernel against its plain version
-and the golden chain through it.
+"""PyTorch/CUDA port on the card: the CUDA kernels against their plain
+versions and the golden chain through K1.
 
 Every test here is marked `cuda` and skips without a card. The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -68,6 +68,49 @@ def test_kernel_refuses_bad_inputs(dev):
     with pytest.raises(ValueError):
         ks.knn_select(args[0].transpose(0, 1).contiguous().transpose(0, 1),
                       *args[1:], 5)
+
+
+PP_CASES = {
+    "main": {},
+    "compact Nd=40 copies=1": dict(n_groups=120, copies=1, nd=40),
+    "hj=V+1": dict(n_groups=2, copies=3, hj=17),
+    "masked destination": dict(n_groups=2, copies=3, masked_row=True),
+    "K=1": dict(n_groups=2, copies=3, k=1),
+    "odd batch B=3": dict(n_groups=3, copies=1),
+}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", list(PP_CASES))
+def test_pp_kernel_matches_plain(dev, case, dtype):
+    """K2 against its plain version at chip_smoke.py's pp cases, within
+    chip_smoke.PP_TOL (fp32 rtol 1e-5 / atol 1e-6; bf16 rtol 1e-2 /
+    atol 1e-3, the reason beside it)."""
+    import chip_smoke
+    from pharmaforge_tpu_torch.ops import pp_message as ppm
+    args, kw = chip_smoke.pp_case(dev, dtype=dtype, **PP_CASES[case])
+    before = ppm.launches
+    with torch.no_grad():
+        got = ppm.fused_message_agg(*args, **kw)
+        want = ppm.message_agg_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert ppm.launches == before + 1
+    chip_smoke.compare(case, got, want, chip_smoke.PP_TOL[dtype])
+
+
+def test_pp_kernel_refuses_bad_inputs(dev):
+    import chip_smoke
+    from pharmaforge_tpu_torch.ops import pp_message as ppm
+    args, kw = chip_smoke.pp_case(dev, dtype="float32", n_groups=2, copies=3)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="copies"):
+            ppm.fused_message_agg(*args, **dict(kw, copies=2))
+        with pytest.raises(ValueError, match="K=65"):
+            pre_s, planes, edge, chain = args
+            wide = type(edge)(*(a.repeat_interleave(5, dim=2)[:, :, :65]
+                                for a in (edge.mask, edge.idx, edge.x_dir,
+                                          edge.d_rbf)), copies=3)
+            ppm.fused_message_agg(pre_s, planes, wide, chain, **kw)
 
 
 def test_golden_knn_chain_on_card(dev):

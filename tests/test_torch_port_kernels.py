@@ -121,5 +121,9 @@ def test_build_is_keyed_on_source_and_flags():
     assert path.name.startswith("knn_select-") and path.suffix == ".so"
     assert path == _build.library_path("knn_select")
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
-    assert "--fmad=false" in _build.NVCC_FLAGS
+    # per-kernel flags: K1 is held bit-equal and builds without multiply-add
+    # contraction; K2 is held to a tolerance and keeps it
+    assert "--fmad=false" in _build.nvcc_flags("knn_select")
+    assert "--fmad=false" not in _build.nvcc_flags("pp_message")
+    assert _build.library_path("pp_message").name.startswith("pp_message-")
 
