@@ -2,13 +2,14 @@
 """On-card smoke run of the PyTorch/CUDA port (`pharmaforge_tpu_torch`).
 
     python3 chip_smoke.py            # needs one CUDA card
-    python3 chip_smoke.py --profile  # also traces chains with torch.profiler
+    python3 chip_smoke.py --profile  # also traces chains and a train step
+                                     # with torch.profiler
 
 Phases, one line each; any failure raises and the script exits non-zero:
 
-1. build     -- compile every CUDA kernel of the sampling path from
-                `pharmaforge_tpu_torch/csrc` (nvcc, sm_90a; one nvcc per
-                source, all started together);
+1. build     -- compile every CUDA kernel of the sampling and training
+                paths from `pharmaforge_tpu_torch/csrc` (nvcc, sm_90a; one
+                nvcc per source, all started together);
 2. knn       -- the `knn_select` kernel (K1) against its plain PyTorch
                 version on the card: idx, dist and xg bit-equal at the
                 sampling shape and at edge cases (ties, a masked pharm
@@ -39,7 +40,26 @@ Phases, one line each; any failure raises and the script exits non-zero:
                 output, exactly 2,000 K2 and 1,000 K1 launches per chain,
                 samples/s over timed chains after a warm-up; and the same
                 model in fp32 over 20 steps, 1 pocket x 8, on the card and
-                on the CPU with the same injected noise, within 2e-3.
+                on the CPU with the same injected noise, within 2e-3;
+7. ppbwd     -- the pp-message backward kernel (K3) against autograd
+                through the plain version on the card: the training shape
+                (B=32 pockets of 230 atoms in 256 slots, K=16, S=128,
+                V=16, 3 GVPs) in fp32 and bf16, copies=3, hidden width
+                V+1, a fully masked destination (whose cotangent must reach
+                no gradient), a source repeated in one list and across
+                tiles, K=1, an odd batch; device times of K3 (graph
+                replay), of K2 + K3 forward and backward, of the plain
+                version's backward, and the bound;
+8. train     -- `Trainer.fit` at full scale: the reference-size model in
+                fp32 with dropout 0.1 (bench.py:456-465) on a synthetic
+                3 x 64-pocket dataset (200-230 atoms, seed 11), batch 32,
+                two epochs with one sampling evaluation, then a third
+                epoch resumed from 'last': exactly 1 K1, 2 K2 and 2 K3
+                launches per optimizer step, finite losses, a bit-equal
+                checkpoint round trip, train steps/s; and one fp32 step at
+                dropout 0 on the card and on the CPU from the same weights
+                and injected noise (loss within rtol 1e-5, gradients per
+                leaf within 2e-4 max|b| + 2e-5).
 
 Then the card's name and power limit, the `kernels` JSON line, and the
 final `{"ok": true, ...}` line. Without CUDA it exits 1 and prints no
@@ -67,7 +87,7 @@ CHAIN_TOL = 2e-3          # the JAX package's full-chain tolerance
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS = 67e12
 PEAK_BF16_OPS = 989e12
-KERNELS = ("knn_select", "pp_message")
+KERNELS = ("knn_select", "pp_message", "pp_message_bwd")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -319,18 +339,22 @@ def full_config():
                                compute_dtype="bfloat16")
 
 
-def kernel_modules():
+def kernel_counters():
+    """Kernel name -> (module, name of its wrapper's launch count)."""
     from pharmaforge_tpu_torch.ops import knn_select, pp_message
-    return {"knn_select": knn_select, "pp_message": pp_message}
+    return {"knn_select": (knn_select, "launches"),
+            "pp_message": (pp_message, "launches"),
+            "pp_message_bwd": (pp_message, "bwd_launches")}
 
 
 def reset_launches() -> None:
-    for mod in kernel_modules().values():
-        mod.launches = 0
+    for mod, attr in kernel_counters().values():
+        setattr(mod, attr, 0)
 
 
 def read_launches() -> dict:
-    return {name: mod.launches for name, mod in kernel_modules().items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in kernel_counters().items()}
 
 
 def expected_launches(cfg) -> dict:
@@ -338,7 +362,8 @@ def expected_launches(cfg) -> dict:
     middle conv (convs 1 .. n-2) per call."""
     t = cfg.n_timesteps
     return {"knn_select": t if cfg.pf_k else 0,
-            "pp_message": t * max(cfg.n_convs - 2, 0) if cfg.fused_pp else 0}
+            "pp_message": t * max(cfg.n_convs - 2, 0) if cfg.fused_pp else 0,
+            "pp_message_bwd": 0}
 
 
 def phase_sampling(name: str, dev, cfg, n_pockets: int, per_pocket: int,
@@ -437,15 +462,23 @@ def profile_chain(name: str, sampler, pockets, n_pharms, gen,
                   steps: int) -> None:
     """One chain under torch.profiler: device busy share and the kernels
     that take the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as prof
     gen.manual_seed(9)
     sampler.sample_stacked(pockets, n_pharms, gen)      # warm-up
     torch.cuda.synchronize()
+    profile_run(f"profile {name}: chain of T={steps}",
+                lambda: sampler.sample_stacked(pockets, n_pharms, gen))
+
+
+def profile_run(label: str, fn) -> None:
+    """`fn` once under torch.profiler; prints its wall time, the device's
+    busy share, each port kernel's time per launch and the 12 kernels that
+    take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
     with prof(activities=[ProfilerActivity.CPU,
                           ProfilerActivity.CUDA]) as p:
         t0 = time.perf_counter()
-        sampler.sample_stacked(pockets, n_pharms, gen)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -454,9 +487,11 @@ def profile_chain(name: str, sampler, pockets, n_pharms, gen,
                 or getattr(e, "self_cuda_time_total", 0))
 
     # device-side events only (kernels, copies): the host ops that launch
-    # them report the same time again
+    # them report the same time again, and a user annotation on the device
+    # (such as the optimizer's step range) spans kernels counted already
     events = [e for e in p.key_averages()
-              if e.device_type == DeviceType.CUDA and self_us(e) > 0]
+              if e.device_type == DeviceType.CUDA and self_us(e) > 0
+              and not getattr(e, "is_user_annotation", False)]
     busy = sum(self_us(e) for e in events) / 1e6
     top = sorted(events, key=lambda e: -self_us(e))[:12]
     per_kernel = []
@@ -465,7 +500,7 @@ def profile_chain(name: str, sampler, pockets, n_pharms, gen,
         n = sum(e.count for e in evs)
         per_kernel.append(f"{kname}_kernel {sum(self_us(e) for e in evs) / max(n, 1):.2f} "
                           f"us per launch x{n}")
-    print(f"profile {name}: chain of T={steps} wall {wall:.4f} s under the "
+    print(f"{label} wall {wall:.4f} s under the "
           f"profiler, device busy {busy:.4f} s ({100 * busy / wall:.1f}%) "
           f"in {sum(e.count for e in events)} device kernels and copies; "
           + "; ".join(per_kernel) + "; "
@@ -494,12 +529,15 @@ PP_TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
 
 def pp_case(dev, *, dtype: str, n_groups: int = 4, copies: int = 30,
             atoms: int = 230, k: int = 16, nd=None, hj: int = 16,
-            masked_row: bool = False, s: int = 128, v: int = 16):
+            masked_row: bool = False, s: int = 128, v: int = 16,
+            slots=None, dup: bool = False, table_dtype=None):
     """One K2 call as the main path makes it: the pp edges of synthetic
     pockets at pocket-group level, random node tables in the compute
-    dtype, a message chain with seeded weights. `nd` picks that many
-    destination atoms per row (the compact-tail call, one row per
-    group)."""
+    dtype (or `table_dtype`), a message chain with seeded weights. `nd`
+    picks that many destination atoms per row (the compact-tail call, one
+    row per group); `slots` pads the pockets' `atoms` to that many slots
+    (the training batch); `dup` makes one source atom occur twice in one
+    destination's list and in a list of another tile."""
     from pharmaforge_tpu_torch.models.conv import message_specs
     from pharmaforge_tpu_torch.models.edges import (EdgeData,
                                                     GroupedEdgeData,
@@ -507,8 +545,9 @@ def pp_case(dev, *, dtype: str, n_groups: int = 4, copies: int = 30,
     from pharmaforge_tpu_torch.models.gvp import GVPChain, reset_parameters_
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
     pockets = synthetic_pockets(4, atoms)
-    prot_x = np.zeros((n_groups, atoms, 3), np.float32)
-    prot_mask = np.zeros((n_groups, atoms), bool)
+    slots = slots or atoms
+    prot_x = np.zeros((n_groups, slots, 3), np.float32)
+    prot_mask = np.zeros((n_groups, slots), bool)
     for i in range(n_groups):
         px = pockets[i % len(pockets)]["prot_x"]
         prot_x[i, :len(px)] = px
@@ -517,7 +556,7 @@ def pp_case(dev, *, dtype: str, n_groups: int = 4, copies: int = 30,
                           torch.from_numpy(prot_mask).to(dev), 3.5, k)
     gen = torch.Generator(device=dev).manual_seed(n_groups * 100 + k)
     if nd is not None:
-        sel = torch.argsort(torch.rand(n_groups, atoms, generator=gen,
+        sel = torch.argsort(torch.rand(n_groups, slots, generator=gen,
                                        device=dev), dim=1)[:, :nd]
         ed = EdgeData(*(torch.take_along_dim(
             a, sel.reshape(sel.shape + (1,) * (a.dim() - 2)), dim=1)
@@ -525,15 +564,23 @@ def pp_case(dev, *, dtype: str, n_groups: int = 4, copies: int = 30,
     if masked_row:
         ed = ed._replace(mask=ed.mask.clone())
         ed.mask[:, 3] = False
+    if dup:
+        ed = ed._replace(mask=ed.mask.clone(), idx=ed.idx.clone())
+        src = ed.idx[:, 5, 0]
+        ed.idx[:, 5, 1] = src                    # twice in one list
+        ed.idx[:, ed.idx.shape[1] - 3, 0] = src  # and in another tile's
+        ed.mask[:, 5, :2] = True
+        ed.mask[:, ed.idx.shape[1] - 3, 0] = True
     edge = GroupedEdgeData(*ed, copies=copies) if copies > 1 else ed
     specs = message_specs(3, v, s, 16)
     specs[1:] = [dict(sp, hidden_vectors=hj) for sp in specs[1:]]
     chain = reset_parameters_(GVPChain(specs),
                               torch.Generator().manual_seed(7)).to(dev)
     b = n_groups * copies
-    pre_s = torch.randn(b, atoms, s, generator=gen, device=dev).to(dt)
-    planes = [(0.5 * torch.randn(b, atoms, v + 1, generator=gen,
-                                 device=dev)).to(dt) for _ in range(3)]
+    tdt = table_dtype or dt
+    pre_s = torch.randn(b, slots, s, generator=gen, device=dev).to(tdt)
+    planes = [(0.5 * torch.randn(b, slots, v + 1, generator=gen,
+                                 device=dev)).to(tdt) for _ in range(3)]
     kw = dict(scalar_size=s, vector_size=v, rbf_dim=16,
               compute_dtype=dtype, copies=copies)
     return (pre_s, planes, edge, chain), kw
@@ -642,12 +689,435 @@ def phase_pp(dev) -> dict:
             "library_ms": None}
 
 
+# ----------------------------------------------------------------- ppbwd
+
+# K3 against autograd through the plain version. fp32: the JAX backward
+# kernel-vs-twin tolerance (tests/test_pp_fused.py:319-321), per element,
+# against the plain version run in fp64. A weight gradient sums ~20 k edge
+# rows at the training shape and the fp32 plain version rounds that sum by
+# about as much as the tolerance allows (its own deviation from fp64 is
+# printed), so an fp32 reference would hold K3 to the reference's rounding
+# rather than to the gradient. bf16: against the fp32 plain grads,
+# max |a - b| / max(|b|, 1) below the JAX bf16 bound
+# (tests/test_pp_fused.py:355-358), set at a 2 x 11 x 4 edge shape. A
+# weight gradient sums one bf16-rounded term per edge row, so the error
+# grows with the rows: at the training shape (~20 k rows) the plain
+# version's own bf16 gradients are 0.32 from its fp32 ones. The bound is
+# therefore the larger of 0.25 and 1.5 x the plain version's own bf16
+# deviation in the same case.
+PPBWD_TOL = {"float32": dict(rtol=2e-4, atol=2e-5), "bfloat16": 0.25}
+PPBWD_BF16_FLOOR = 1.5
+# the training batch's pp call: 32 pockets of 230 atoms in 256 slots
+PPBWD_TRAIN = dict(n_groups=32, copies=1, atoms=230, slots=256)
+PPBWD_CASES = {
+    "train": PPBWD_TRAIN,
+    "copies=3": dict(n_groups=2, copies=3),
+    "hj=V+1": dict(n_groups=2, copies=3, hj=17),
+    "masked destination": dict(n_groups=2, copies=3, masked_row=True),
+    "repeated source": dict(n_groups=2, copies=1, dup=True),
+    "K=1": dict(n_groups=2, copies=3, k=1),
+    "odd batch B=3": dict(n_groups=3, copies=1),
+}
+
+
+def ppbwd_grads(args, kw, fused: bool, cot):
+    """Gradients of <(s_sum, v_sum), cot> w.r.t. pre_s, the three planes
+    and every chain parameter, through K2 + K3 (`fused`) or autograd of
+    the plain version; the inputs are fp32 leaves."""
+    from pharmaforge_tpu_torch.ops import pp_message as ppm
+    pre_s, planes, edge, chain = args
+    leaves = [pre_s, *planes, *chain.parameters()]
+    for t in leaves:
+        t.requires_grad_(True)
+    fn = ppm.fused_message_agg if fused else ppm.message_agg_reference
+    out = fn(pre_s, planes, edge, chain, **kw)
+    return torch.autograd.grad(out, leaves, cot)
+
+
+def ppbwd_want(args, kw, dtype: str, cot):
+    """The plain version's gradients K3 is held to: fp64 for an fp32 K3,
+    fp32 for a bf16 one."""
+    ref = "float64" if dtype == "float32" else "float32"
+    return ppbwd_grads(args, dict(kw, compute_dtype=ref), False, cot)
+
+
+def fp32_over(got, want) -> float:
+    """max over leaves and elements of |a - b| / (atol + rtol |b|) at the
+    fp32 tolerance: at most 1 within it."""
+    tol = PPBWD_TOL["float32"]
+    return max(float(((g - w).abs() / (tol["atol"] + tol["rtol"] * w.abs()))
+                     .max()) for g, w in zip(got, want))
+
+
+def bf16_rel(got, want) -> float:
+    """max over leaves and elements of |a - b| / max(|b|, 1)."""
+    return max(float(((g - w).abs() / w.abs().clamp(min=1.0)).max())
+               for g, w in zip(got, want))
+
+
+def ppbwd_compare(name, got, want, dtype, bound=None) -> float:
+    """Per leaf: fp32 |a - b| <= atol + rtol |b|; bf16 max |a - b| /
+    max(|b|, 1) < `bound`. Returns the worst error (abs or relative)."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+              f"ppbwd {name}: leaf {i} {tuple(g.shape)} vs {tuple(w.shape)}"
+              f" or non-finite")
+        err = (g - w).abs()
+        if dtype == "float32":
+            tol = PPBWD_TOL["float32"]
+            over = float((err - tol["atol"] - tol["rtol"] * w.abs()).max())
+            check(over <= 0, f"ppbwd {name} fp32: leaf {i} max |err| "
+                             f"{float(err.max()):.3e} beyond {tol}")
+            worst = max(worst, float(err.max()))
+        else:
+            rel = float((err / w.abs().clamp(min=1.0)).max())
+            check(rel < bound, f"ppbwd {name} bf16: leaf {i} relative "
+                               f"error {rel:.3e}, bound {bound:.3e}")
+            worst = max(worst, rel)
+    return worst
+
+
+def ppbwd_bound(args, kw) -> tuple:
+    """(bytes, operations, edge rows) of one K3 call: its inputs read once
+    (K2's inputs, the raw geometry, the fp32 cotangents) and its outputs
+    written once (fp32 node tables, fp64 weight gradients); two operations
+    per multiply-add of the chain's
+    recompute and backward over the edge rows whose mask is set."""
+    from pharmaforge_tpu_torch.ops import pp_message as ppm
+    pre_s, planes, edge, chain = args
+    s, v, r = kw["scalar_size"], kw["vector_size"], kw["rbf_dim"]
+    copies = kw["copies"]
+    b, p, _ = pre_s.shape
+    g, nd, k = edge.mask.shape
+    h0 = planes[0].shape[-1]
+    w = ppm.split_weights(chain, s, r)
+    hj = w[7].shape[1]
+    n_j = (len(w) - 7) // 7
+    elem = ppm.COMPUTE_DTYPES[kw["compute_dtype"]].itemsize
+    packed = sum(a.numel() for i, a in enumerate(w) if i not in (0, 2, 4))
+    grads = sum(a.numel() for a in w)
+    n_bytes = (elem * (b * p * (s + 3 * h0)
+                       + g * nd * k * (s + 3 * h0 + r + 3) + packed)
+               + 8 * g * nd * k + 4 * b * nd * (s + 3 * v)
+               + 4 * b * p * (s + 3 * h0) + 8 * grads)
+    fwd = (h0 * s + s * v + 3 * h0 * v
+           + n_j * (3 * v * hj + s * s + hj * s + s * v + 3 * hj * v))
+    bwd = (2 * s * v + 6 * h0 * v + r * s + 2 * h0 * s + 3 * h0
+           + n_j * (2 * s * v + 12 * v * hj + 2 * s * s + 2 * hj * s))
+    rows = int(edge.mask.sum()) * copies
+    return n_bytes, 2 * (fwd + bwd) * rows, rows
+
+
+def phase_ppbwd(dev, cases=None) -> dict:
+    """K3 against autograd through the plain version over `cases`; a fully
+    masked destination's cotangent reaches no node; device times at the
+    training shape."""
+    from pharmaforge_tpu_torch.ops import pp_message as ppm
+    cases = PPBWD_CASES if cases is None else cases
+    errs = {}
+    for dtype in ("float32", "bfloat16"):
+        for name, extra in cases.items():
+            args, kw = pp_case(dev, dtype=dtype, table_dtype=torch.float32,
+                               **extra)
+            gen = torch.Generator(device=dev).manual_seed(5)
+            b, nd = args[0].shape[0], args[2].mask.shape[1]
+            cot = (torch.randn(b, nd, kw["scalar_size"], generator=gen,
+                               device=dev),
+                   torch.randn(b, nd, kw["vector_size"], 3, generator=gen,
+                               device=dev))
+            before = ppm.bwd_launches
+            got = ppbwd_grads(args, kw, True, cot)
+            torch.cuda.synchronize()
+            check(ppm.bwd_launches == before + 1,
+                  f"ppbwd {name}: the wrapper did not launch K3")
+            want = ppbwd_want(args, kw, dtype, cot)
+            bound = None
+            if dtype == "float32":
+                # the fp32 plain version's own distance from fp64, in units
+                # of the tolerance (information: not checked)
+                errs[f"{name} plain fp32 / tol"] = fp32_over(
+                    ppbwd_grads(args, kw, False, cot), want)
+                errs[f"{name} K3 fp32 / tol"] = fp32_over(got, want)
+            else:
+                floor = bf16_rel(ppbwd_grads(args, kw, False, cot), want)
+                bound = max(PPBWD_TOL["bfloat16"], PPBWD_BF16_FLOOR * floor)
+                errs[f"{name} plain bf16"] = floor
+            errs[f"{name} {dtype}"] = ppbwd_compare(name, got, want, dtype,
+                                                    bound)
+            if extra.get("masked_row"):
+                # a cotangent on the fully masked destination alone
+                only = tuple(torch.zeros_like(c) for c in cot)
+                only[0][:, 3], only[1][:, 3] = cot[0][:, 3], cot[1][:, 3]
+                zero = ppbwd_grads(args, kw, True, only)
+                check(all(not z.any() for z in zero),
+                      "ppbwd: a fully masked destination reached a node or "
+                      "weight gradient")
+
+    # device times at the training shape, both compute dtypes
+    times = {}
+    for dtype in ("float32", "bfloat16"):
+        args, kw = pp_case(dev, dtype=dtype, table_dtype=torch.float32,
+                           **PPBWD_TRAIN)
+        pre_s, planes, edge, chain = args
+        weights = ppm.split_weights(chain, kw["scalar_size"], kw["rbf_dim"])
+        d = ppm._dims(pre_s, planes, edge, weights, **kw)
+        with torch.no_grad():
+            saved = ppm.kernel_inputs(d, pre_s, planes, edge, weights)
+        gen = torch.Generator(device=dev).manual_seed(6)
+        ds = torch.randn(d.b, d.nd, d.s, generator=gen, device=dev)
+        dv = torch.randn(d.b, d.nd, d.v, 3, generator=gen, device=dev)
+        times[dtype] = graph_ms(lambda: ppm._launch_bwd(d, saved, ds, dv),
+                                calls=10, replays=3)
+        if dtype == "float32":
+            leaves = [pre_s, *planes, *chain.parameters()]
+            for t in leaves:
+                t.requires_grad_(True)
+            times["fwd_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+                ppm.fused_message_agg(pre_s, planes, edge, chain, **kw),
+                leaves, (ds, dv)), reps=10, warmup=2)
+            out = ppm.message_agg_reference(pre_s, planes, edge, chain, **kw)
+            times["plain"] = cuda_ms(lambda: torch.autograd.grad(
+                out, leaves, (ds, dv), retain_graph=True), reps=5, warmup=1)
+            n_bytes, n_ops, n_rows = ppbwd_bound(args, kw)
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_FP32_OPS
+    print(f"ppbwd: {2 * len(cases)} cases within tolerance of autograd through "
+          f"the plain version (fp32 {PPBWD_TOL['float32']} against the plain "
+          f"version in fp64, bf16 relative "
+          f"< max({PPBWD_TOL['bfloat16']}, {PPBWD_BF16_FLOOR} x the plain "
+          f"version's own bf16 deviation) against fp32); errors "
+          f"{json.dumps(errs)}; a fully masked destination reaches no "
+          f"gradient; training shape B={d.b} P={d.p} Nd={d.nd} K={d.k} "
+          f"S={d.s} V={d.v} ({n_rows} of {d.b * d.nd * d.k} slots are "
+          f"edges): K3 per call from CUDA-graph replay fp32 "
+          f"{times['float32']:.4f} ms, bf16 {times['bfloat16']:.4f} ms; "
+          f"K2 + K3 forward and backward (eager, fp32) "
+          f"{times['fwd_bwd']:.4f} ms; plain version's backward (eager, "
+          f"fp32) {times['plain']:.4f} ms; bound "
+          f"{max(t_bytes, t_ops) * 1e3:.6f} ms ({n_bytes} B at 3.35 TB/s, "
+          f"{n_ops} ops at 67 TFLOP/s fp32); library call: none",
+          flush=True)
+    return {"name": "pp_message_bwd", "route": "cuda",
+            "source": "pharmaforge_tpu_torch/csrc/pp_message_bwd.cu",
+            "replaces": "pharmaforge_tpu/ops/pallas/pp_message.py:714",
+            "max_abs_err": errs.get("train float32"), "ms": times["float32"],
+            "bf16_ms": times["bfloat16"], "fwd_bwd_ms": times["fwd_bwd"],
+            "plain_ms": times["plain"],
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
 # -------------------------------------------------------------- fullscale
 
 def phase_fullscale(dev, profile: bool = False) -> dict:
     return phase_sampling("fullscale", dev, full_config(), n_pockets=4,
                           per_pocket=30, atoms=230, timed=2, cmp_steps=20,
                           profile=profile)
+
+
+# ------------------------------------------------------------------ train
+
+PER_STEP = {"knn_select": 1, "pp_message": 2, "pp_message_bwd": 2}
+
+
+def train_config(data_dir: str, max_epochs: int = 2, dropout: float = 0.1,
+                 batch_size: int = 32) -> dict:
+    """The reference-size model as `bench.py`'s full-scale training bench
+    builds it (bench.py:456-465): n_convs=4, 128 scalars, 16 vectors,
+    3/2/4 message/update/noise GVPs, pf_k=5, pp_k_max=16, dropout 0.1,
+    endpoint parameterization, fp32, T=1000; batch 32, validation on
+    split 2, one sampling evaluation in two epochs (8 pockets x 2)."""
+    return {
+        "training": {"batch_size": batch_size, "validation_splits": [2],
+                     "trainer_args": {"max_epochs": max_epochs},
+                     "evaluation": {"pharms_per_pocket": 2, "n_pockets": 8,
+                                    "sample_interval": 1.0,
+                                    "val_loss_interval": 1.0}},
+        "lr_scheduler": {"base_lr": 1e-3, "weight_decay": 1e-12,
+                         "reducelronplateau": {"mode": "min", "factor": 0.1,
+                                               "patience": 20,
+                                               "min_lr": 1e-5}},
+        "checkpointing": {"save_last": True, "save_top_k": 3},
+        "wandb": {"mode": "disabled"},
+        "dataset": {"raw_data_dir": "", "processed_data_dir": data_dir,
+                    "prot_elements": ["C", "N", "O", "S", "P", "F", "Cl",
+                                      "Br", "I", "B", "D"],
+                    "ph_type_map": ["Aromatic", "HydrogenDonor",
+                                    "HydrogenAcceptor", "PositiveIon",
+                                    "NegativeIon", "Hydrophobic"],
+                    "subsample_pharms": True, "subsample_min": 4,
+                    "subsample_max": 8},
+        "graph": {"graph_cutoffs": {"pp": 3.5, "pf": 8, "fp": 8, "ff": 9},
+                  "pp_k_max": 16},
+        "diffusion": {"n_timesteps": 1000, "precision": 1e-4,
+                      "endpoint_param_feat": True,
+                      "endpoint_param_coord": True, "remove_com": True},
+        "dynamics": {"vector_size": 16, "n_convs": 4, "n_hidden_scalars": 128,
+                     "message_norm": "mean", "dropout": dropout, "ff_k": 0,
+                     "pf_k": 5, "n_message_gvps": 3, "n_update_gvps": 2,
+                     "n_noise_gvps": 4, "compute_dtype": "float32"},
+    }
+
+
+def count_steps(trainer, per_step: list) -> None:
+    """Wrap `trainer.train_step` so each optimizer step's kernel launches
+    (the counts just after it less those just before it) go to
+    `per_step`."""
+    step = trainer.train_step
+
+    def counted(batch):
+        before = read_launches()
+        out = step(batch)
+        after = read_launches()
+        per_step.append({k: after[k] - before[k] for k in after})
+        return out
+
+    trainer.train_step = counted
+
+
+def grads_close(got: dict, want: dict) -> float:
+    """Per leaf max |a - b| <= 2e-4 max |b| + 2e-5; returns the worst
+    ratio of the error to its bound."""
+    worst = 0.0
+    for k, w in want.items():
+        err = float((got[k] - w).abs().max())
+        bound = 2e-4 * float(w.abs().max()) + 2e-5
+        check(err <= bound, f"train: card vs CPU gradient {k} max |a - b| "
+                            f"{err:.3e} > {bound:.3e}")
+        worst = max(worst, err / bound)
+    return worst
+
+
+def card_vs_cpu_step(model, batch, rows: int = 8) -> str:
+    """One fp32 loss + backward at dropout 0 from `model`'s weights with
+    injected noise, on the card and on the CPU, over the batch's first
+    `rows` rows: losses within rtol 1e-5, gradients per leaf."""
+    from pharmaforge_tpu_torch.data.batch import PharmComplexBatch
+    from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
+    cfg = dataclasses.replace(model.config, dropout=0.0)
+    sub = PharmComplexBatch(**{f.name: getattr(batch, f.name)[:rows]
+                               for f in dataclasses.fields(PharmComplexBatch)})
+    rng = np.random.default_rng(4)
+    b, f = sub.pharm_mask.shape
+    noise = {"t_int": rng.integers(0, cfg.n_timesteps, b),
+             "eps_x": rng.normal(size=(b, f, 3)).astype(np.float32),
+             "eps_h": rng.normal(size=(b, f, cfg.pharm_nf)).astype(np.float32)}
+    out = {}
+    for name in ("card", "cpu"):
+        m = PharmacophoreDiffusion(
+            cfg, device=model.device if name == "card" else "cpu")
+        m.load_state_dict(model.state_dict())
+        reset_launches()
+        total, _ = m.loss(sub, train=True, noise=noise)
+        total.backward()
+        launched = read_launches()
+        out[name] = (total.item(), {k: p.grad.detach().cpu()
+                                    for k, p in m.named_parameters()},
+                     launched)
+    (loss_g, g_g, n_g), (loss_c, g_c, _) = out["card"], out["cpu"]
+    check(n_g == PER_STEP, f"train: card step launches {n_g}")
+    check(abs(loss_g - loss_c) <= 1e-5 * abs(loss_c),
+          f"train: card loss {loss_g!r} vs CPU {loss_c!r}")
+    worst = grads_close(g_g, g_c)
+    return (f"card vs CPU (fp32, dropout 0, {b} rows, injected noise): loss "
+            f"{loss_g!r} vs {loss_c!r} (rel {abs(loss_g - loss_c) / abs(loss_c):.2e}"
+            f", tolerance 1e-5), worst gradient leaf at {worst:.3f} of its "
+            f"bound 2e-4 max|b| + 2e-5")
+
+
+def phase_train(dev, profile: bool = False, config_fn=train_config,
+                samples_per_split: int = 64, n_prot_range=(200, 230)) -> dict:
+    """`Trainer.fit` at full scale on the card: 2 epochs, then a third
+    resumed from 'last'. Every optimizer step launches K1 once and K2 and
+    K3 twice; losses are finite; the checkpoint restores bit-equal weights;
+    train steps/s over the timed steps (the first step of each run is the
+    warm-up; validation and sampling fall between steps and are not
+    timed). Returns the launch counts of the 2-epoch fit."""
+    import tempfile
+    from pharmaforge_tpu_torch.config.load_from_config import (
+        data_module_from_config, model_from_config)
+    from pharmaforge_tpu_torch.data.synthetic import (
+        make_synthetic_processed_dataset)
+    from pharmaforge_tpu_torch.training.checkpoints import RunCheckpointer
+    from pharmaforge_tpu_torch.training.trainer import Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = make_synthetic_processed_dataset(
+            f"{tmp}/data", n_splits=3, samples_per_split=samples_per_split,
+            n_prot_range=n_prot_range, seed=11)
+        gen_s = time.perf_counter() - t0
+        config = config_fn(str(data))
+        dm = data_module_from_config(config)
+        model = model_from_config(config, device=dev)
+        trainer = Trainer(config, f"{tmp}/run", device=dev)
+        per_step: list = []
+        count_steps(trainer, per_step)
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer.fit(model, dm)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = read_launches()
+        check(len(per_step) == trainer.global_step > 0,
+              f"train: {len(per_step)} counted steps, global step "
+              f"{trainer.global_step}")
+        check(all(c == PER_STEP for c in per_step),
+              f"train: launches per optimizer step {per_step}, expected "
+              f"{PER_STEP}")
+        slots = {int(dm.train_dataset.prot_size(i))
+                 for i in range(len(dm.train_dataset))}
+        records = [json.loads(ln) for ln in
+                   Path(f"{tmp}/run/metrics.jsonl").read_text().splitlines()]
+        losses = [r[k] for r in records for k in r if "loss" in k]
+        check(bool(losses) and bool(np.isfinite(losses).all()),
+              "train: non-finite or missing losses")
+        validity = [r["validity"] for r in records if "validity" in r]
+        check(len(validity) == 1, f"train: {len(validity)} sampling "
+                                  f"evaluations in 2 epochs, expected 1")
+        state, meta = RunCheckpointer(f"{tmp}/run").restore("last")
+        check(all(torch.equal(state["model"][k], v.cpu())
+                  for k, v in model.state_dict().items()),
+              "train: the checkpoint does not restore bit-equal weights")
+        cmp = card_vs_cpu_step(model, next(iter(dm.train_dataloader(0))))
+
+        config3 = config_fn(str(data), max_epochs=3)
+        resumed = Trainer(config3, f"{tmp}/run", device=dev)
+        count_steps(resumed, per_step)
+        resumed.fit(model_from_config(config3, device=dev, seed=1),
+                    data_module_from_config(config3), resume_from="last")
+        check(resumed.epoch == 3 and resumed.global_step
+              == 3 * trainer.global_step // 2,
+              f"train: resumed to epoch {resumed.epoch}, step "
+              f"{resumed.global_step}")
+        check(all(c == PER_STEP for c in per_step),
+              f"train: launches per optimizer step {per_step}")
+        timed = trainer.step_seconds[1:] + resumed.step_seconds[1:]
+        rates = sorted(1.0 / s for s in timed)
+        if profile:
+            batch = next(iter(dm.train_dataloader(0)))
+            resumed.train_step(batch)                       # warm-up
+            torch.cuda.synchronize()
+            profile_run("profile train: one optimizer step (B=32)",
+                        lambda: resumed.train_step(batch))
+    losses_train = [r["train total loss"] for r in records
+                    if "train total loss" in r]
+    print(f"train: Trainer.fit on {card()}: {trainer.global_step} steps in "
+          f"2 epochs + {resumed.global_step - trainer.global_step} resumed "
+          f"(epoch 3 from 'last'), batch {trainer.batch_size}, pocket slots "
+          f"{sorted({max(64, -(-n // 64) * 64) for n in slots})} (atoms "
+          f"{min(slots)}-{max(slots)}); train steps/s over "
+          f"{len(timed)} timed steps median {float(np.median(rates)):.3f}, "
+          f"min {rates[0]:.3f}, max {rates[-1]:.3f}; fit wall {fit_s:.1f} s "
+          f"(validation and one sampling evaluation included; validity "
+          f"{validity[0]:.3f}); train total loss {losses_train[0]:.4f} -> "
+          f"{losses_train[-1]:.4f}, val {meta['monitored']:.4f}; launches "
+          f"per optimizer step {PER_STEP} in all {len(per_step)} steps; "
+          f"the 2-epoch fit launched {fit_launches}; checkpoint round trip "
+          f"bit-equal; {cmp}; dataset generated in {gen_s:.1f} s",
+          flush=True)
+    return fit_launches
 
 
 def main() -> int:
@@ -665,11 +1135,18 @@ def main() -> int:
     dev_launches = phase_main(dev, profile)
     pp = phase_pp(dev)
     full_launches = phase_fullscale(dev, profile)
-    for kern in (knn, pp):
-        kern["launches"] = full_launches[kern["name"]]
+    ppbwd = phase_ppbwd(dev)
+    train_launches = phase_train(dev, profile)
+    kernels = [knn, pp, ppbwd]
+    for kern in kernels:
+        # `launches`: this slice's main path, the 2-epoch training run
+        kern["launches"] = train_launches[kern["name"]]
+        kern["launches_fullscale_chain"] = full_launches[kern["name"]]
         kern["launches_dev_chain"] = dev_launches[kern["name"]]
+        check(kern["launches"] > 0, f"{kern['name']}: not launched by the "
+                                    f"training run")
     print(card())
-    print(json.dumps({"kernels": [knn, pp]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

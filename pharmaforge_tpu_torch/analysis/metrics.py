@@ -1,0 +1,70 @@
+"""Pharmacophore validity metric.
+
+Port of `pharmaforge_tpu/analysis/metrics.py` (reference
+analysis/metrics.py:7-86): the fraction of generated centres that lie
+within a type-specific distance of a complementary receptor site. Host
+numpy over small decoded samples.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+
+from pharmaforge_tpu_torch.analysis.pharm_builder import SampledPharmacophore
+
+MATCHING_TYPES = {
+    "Aromatic": ["Aromatic", "PositiveIon"],
+    "HydrogenDonor": ["HydrogenAcceptor"],
+    "HydrogenAcceptor": ["HydrogenDonor"],
+    "PositiveIon": ["NegativeIon", "Aromatic"],
+    "NegativeIon": ["PositiveIon"],
+    "Hydrophobic": ["Hydrophobic"],
+}
+
+MATCHING_DISTANCE = {
+    "Aromatic": 7,
+    "Hydrophobic": 5,
+    "HydrogenAcceptor": 4,
+    "HydrogenDonor": 4,
+    "NegativeIon": 5,
+    "PositiveIon": 5,
+}
+
+
+def compute_complementarity(pharm_types: List[str], pharm_pos: np.ndarray,
+                            prot_ph_types: List[str], prot_ph_pos: np.ndarray,
+                            return_count: bool = False):
+    """Fraction (or count) of generated centres near a complementary
+    receptor site (reference metrics.py:53-86)."""
+    if len(prot_ph_types) == 0 or len(pharm_types) == 0:
+        return 0 if return_count else 0.0
+    distances = np.linalg.norm(
+        np.asarray(pharm_pos, np.float64)[:, None, :]
+        - np.asarray(prot_ph_pos, np.float64)[None, :, :], axis=-1)
+    reach = np.array([MATCHING_DISTANCE[t] for t in pharm_types])[:, None]
+    matching = np.array([[rec in MATCHING_TYPES[ph] for rec in prot_ph_types]
+                         for ph in pharm_types])
+    count = int(((distances <= reach) & matching).any(axis=1).sum())
+    return count if return_count else count / len(pharm_types)
+
+
+class SampleAnalyzer:
+
+    def analyze(self, sample: List[SampledPharmacophore]) -> dict:
+        """{'validity': complementary centres / all centres} over samples
+        that carry their pocket's receptor sites (reference
+        metrics.py:9-35)."""
+        valid, total = 0, 0
+        for ph in sample:
+            if ph.prot_ph_pos is None or ph.prot_ph_types is None:
+                raise ValueError(
+                    "sample lacks receptor pharmacophore sites (prot_ph); "
+                    "validity is only computable for dataset pockets")
+            valid += compute_complementarity(
+                pharm_types=ph.ph_types, pharm_pos=ph.ph_coords,
+                prot_ph_types=ph.prot_ph_types, prot_ph_pos=ph.prot_ph_pos,
+                return_count=True)
+            total += ph.n_ph_centers
+        return {"validity": valid / max(total, 1)}

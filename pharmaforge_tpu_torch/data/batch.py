@@ -67,6 +67,50 @@ def pad_to(arr: np.ndarray, n: int, axis: int = 0) -> np.ndarray:
     return np.pad(arr, widths)
 
 
+def collate_complexes(samples: Sequence[dict],
+                      max_pharm: Optional[int] = None,
+                      max_prot: Optional[int] = None,
+                      prot_bucket_multiple: int = 64) -> PharmComplexBatch:
+    """Per-sample dicts (numpy pharm_x [f,3], pharm_h [f,T], prot_x [p,3],
+    prot_h [p,E]) collated into one zero-padded batch (the reference's
+    `dgl.batch` over its complex graphs)."""
+    f_max = max_pharm or max(max(s["pharm_x"].shape[0] for s in samples),
+                             DEFAULT_MAX_PHARM)
+    p_raw = max(s["prot_x"].shape[0] for s in samples)
+    p_max = max_prot or bucket_size(p_raw, prot_bucket_multiple)
+    cols = {f.name: [] for f in dataclasses.fields(PharmComplexBatch)}
+    for s in samples:
+        for side, n_max in (("pharm", f_max), ("prot", p_max)):
+            x = np.asarray(s[f"{side}_x"], np.float32)
+            cols[f"{side}_x"].append(pad_to(x, n_max))
+            cols[f"{side}_h"].append(pad_to(np.asarray(s[f"{side}_h"],
+                                                       np.float32), n_max))
+            m = np.zeros(n_max, bool)
+            m[:x.shape[0]] = True
+            cols[f"{side}_mask"].append(m)
+    return PharmComplexBatch(**{k: np.stack(v) for k, v in cols.items()})
+
+
+def pad_batch_to_multiple(batch: PharmComplexBatch, multiple: int):
+    """Pad the batch axis up to a multiple of `multiple` (JAX
+    parallel/mesh.py): padding rows repeat row 0 with all-false masks, so
+    they add nothing to the masked loss. Returns (batch, real size)."""
+    b = batch.batch_size
+    rem = (-b) % multiple
+    if rem == 0:
+        return batch, b
+
+    def pad(name):
+        arr = np.asarray(getattr(batch, name))
+        fill = np.repeat(arr[:1], rem, axis=0)
+        if name.endswith("mask"):
+            fill = np.zeros_like(fill)
+        return np.concatenate([arr, fill], axis=0)
+
+    return PharmComplexBatch(**{
+        f.name: pad(f.name) for f in dataclasses.fields(PharmComplexBatch)}), b
+
+
 def tile_pocket(prot_x: np.ndarray, prot_h: np.ndarray,
                 pharm_sizes: Sequence[int],
                 n_pharm_feats: int = 6,

@@ -1,0 +1,217 @@
+"""Processed-tensor dataset and its size-bucketed loader.
+
+Port of `pharmaforge_tpu/data/dataset.py`. A processed dataset (the
+reference's format, process_crossdocked.py:173-263) is a directory of
+split directories, each holding `prot_pharm_tensors.npz` (flat arrays
+`pharm_pos`, `pharm_feat`, `prot_pos`, `prot_feat`, `prot_ph_pos`,
+`prot_ph_feat` with `[start, end)` index arrays `pharm_idx` / `prot_idx` /
+`prot_ph_idx`), `prot_file_names.pkl.gz` and `lig_rdmol.pkl.gz` (read
+by the evaluation CLIs, not yet ported). Split directory names end in the
+split index. Samples are numpy dicts; the loader packs padded
+`PharmComplexBatch`es grouped by protein-size bucket.
+
+The JAX package packs batches with its C++ packer; here `pack_batch`
+packs them in numpy, with the same values and the same random draws for
+the pharmacophore subsampling.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Dict, Iterator, List, Optional
+
+import numpy as np
+
+from pharmaforge_tpu_torch.data.batch import (
+    PharmComplexBatch,
+    bucket_size,
+)
+
+
+class ProteinPharmacophoreDataset:
+
+    def __init__(self, name: str, split_idxs: List[int], raw_data_dir: str,
+                 processed_data_dir: str, graph_cutoffs: dict,
+                 prot_elements: List[str], ph_type_map: List[str],
+                 subsample_pharms: bool = False, subsample_min: int = 3,
+                 subsample_max: int = 9, seed: int = 0, **kwargs):
+        """Loads the split directories of `processed_data_dir` whose index
+        is in `split_idxs`. `raw_data_dir`, `graph_cutoffs` and extra
+        config keys are accepted and not read."""
+        self.name = name
+        self.prot_elements = list(prot_elements)
+        self.ph_type_map = list(ph_type_map)
+        self.subsample_pharms = subsample_pharms
+        self.subsample_min = subsample_min
+        self.subsample_max = subsample_max
+        self._rng = np.random.default_rng(seed)
+        self.processed_data_dir = Path(processed_data_dir)
+        if not self.processed_data_dir.exists():
+            raise FileNotFoundError(f"no processed data directory at "
+                                    f"{self.processed_data_dir}")
+
+        keys = ("pharm_pos", "pharm_feat", "prot_pos", "prot_feat",
+                "prot_ph_pos", "prot_ph_feat")
+        cols: Dict[str, list] = {k: [] for k in keys}
+        spans: Dict[str, list] = {k: [] for k in ("pharm", "prot", "prot_ph")}
+        offsets = dict.fromkeys(spans, 0)
+        for split_dir in sorted(self.processed_data_dir.iterdir()):
+            if not split_dir.is_dir():
+                continue
+            try:
+                split_idx = int(split_dir.name.split("_")[-1][-1])
+            except ValueError:
+                continue
+            if split_idx not in split_idxs:
+                continue
+            data = np.load(split_dir / "prot_pharm_tensors.npz")
+            for k in keys:
+                cols[k].append(data[k])
+            for side in spans:
+                spans[side].append(data[f"{side}_idx"] + offsets[side])
+                offsets[side] += len(data[f"{side}_pos"])
+        if not cols["pharm_pos"]:
+            raise FileNotFoundError(f"no split directories matching "
+                                    f"{split_idxs} under "
+                                    f"{self.processed_data_dir}")
+        self.pharm_pos = np.concatenate(cols["pharm_pos"]).astype(np.float32)
+        self.pharm_feat = np.concatenate(cols["pharm_feat"])
+        self.prot_pos = np.concatenate(cols["prot_pos"]).astype(np.float32)
+        self.prot_feat = np.concatenate(cols["prot_feat"])
+        self.prot_ph_pos = np.concatenate(cols["prot_ph_pos"]).astype(
+            np.float32)
+        self.prot_ph_feat = np.concatenate(cols["prot_ph_feat"])
+        self.pharm_idx = np.concatenate(spans["pharm"])
+        self.prot_idx = np.concatenate(spans["prot"])
+        self.prot_ph_idx = np.concatenate(spans["prot_ph"])
+
+    def __len__(self) -> int:
+        return self.prot_idx.shape[0]
+
+    def prot_size(self, i: int) -> int:
+        s, e = self.prot_idx[i]
+        return int(e - s)
+
+    def _subsample(self, n: int) -> Optional[np.ndarray]:
+        """Row selection of a pharmacophore of `n` centres under
+        subsampling (reference protein_pharm_dataset.py:158-168), or None
+        to keep it whole."""
+        if not self.subsample_pharms or n <= self.subsample_min - 1:
+            return None
+        sub_max = min(self.subsample_max, n)
+        k = (self.subsample_min if self.subsample_min == sub_max
+             else int(self._rng.integers(self.subsample_min, sub_max + 1)))
+        return self._rng.choice(n, size=k, replace=False)
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        ps, pe = self.pharm_idx[i]
+        rs, re = self.prot_idx[i]
+        qs, qe = self.prot_ph_idx[i]
+        eye_ph = np.eye(len(self.ph_type_map), dtype=np.float32)
+        pharm_pos = self.pharm_pos[ps:pe]
+        pharm_h = eye_ph[self.pharm_feat[ps:pe].astype(np.int64)]
+        sel = self._subsample(len(pharm_pos))
+        if sel is not None:
+            pharm_pos, pharm_h = pharm_pos[sel], pharm_h[sel]
+        return {
+            "pharm_x": pharm_pos, "pharm_h": pharm_h,
+            "prot_x": self.prot_pos[rs:re],
+            "prot_h": np.eye(len(self.prot_elements), dtype=np.float32)[
+                self.prot_feat[rs:re].astype(np.int64)],
+            "prot_ph_x": self.prot_ph_pos[qs:qe],
+            "prot_ph_h": eye_ph[self.prot_ph_feat[qs:qe].astype(np.int64)],
+        }
+
+    def pack_batch(self, indices, max_pharm: int, max_prot: int
+                   ) -> PharmComplexBatch:
+        """A padded batch straight from the flat arrays: rows sliced,
+        one-hot encoded and zero-padded to `max_pharm` / `max_prot`
+        slots, pharmacophores subsampled row by row."""
+        indices = np.asarray(indices)
+        b = len(indices)
+        n_ph, n_el = len(self.ph_type_map), len(self.prot_elements)
+        out = {"pharm_x": np.zeros((b, max_pharm, 3), np.float32),
+               "pharm_h": np.zeros((b, max_pharm, n_ph), np.float32),
+               "pharm_mask": np.zeros((b, max_pharm), bool),
+               "prot_x": np.zeros((b, max_prot, 3), np.float32),
+               "prot_h": np.zeros((b, max_prot, n_el), np.float32),
+               "prot_mask": np.zeros((b, max_prot), bool)}
+        for row, i in enumerate(indices):
+            rs, re = self.prot_idx[i]
+            n = re - rs
+            out["prot_x"][row, :n] = self.prot_pos[rs:re]
+            out["prot_h"][row, np.arange(n), self.prot_feat[rs:re]] = 1.0
+            out["prot_mask"][row, :n] = True
+        for row, i in enumerate(indices):
+            ps, pe = self.pharm_idx[i]
+            sel = self._subsample(int(pe - ps))
+            rows = np.arange(ps, pe) if sel is None else ps + sel
+            n = len(rows)
+            out["pharm_x"][row, :n] = self.pharm_pos[rows]
+            out["pharm_h"][row, np.arange(n), self.pharm_feat[rows]] = 1.0
+            out["pharm_mask"][row, :n] = True
+        return PharmComplexBatch(**out)
+
+
+def get_dataloader(dataset: ProteinPharmacophoreDataset, batch_size: int,
+                   shuffle: bool = True, seed: int = 0,
+                   max_pharm: Optional[int] = None,
+                   prot_bucket_multiple: int = 64,
+                   drop_last: bool = False) -> "BucketedLoader":
+    return BucketedLoader(dataset, batch_size, shuffle=shuffle, seed=seed,
+                          max_pharm=max_pharm,
+                          prot_bucket_multiple=prot_bucket_multiple,
+                          drop_last=drop_last)
+
+
+class BucketedLoader:
+    """Batches grouped by protein-size bucket, so every batch has one of a
+    few padded shapes. Batch order, shuffling and the pharm slot count
+    follow the JAX package's loader draw for draw."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
+                 seed: int = 0, max_pharm: Optional[int] = None,
+                 prot_bucket_multiple: int = 64, drop_last: bool = False):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        if max_pharm is None:
+            # one pharm slot count for every batch: the subsample cap under
+            # augmentation, else the dataset-wide maximum
+            if getattr(dataset, "subsample_pharms", False):
+                max_pharm = int(dataset.subsample_max)
+            else:
+                max_pharm = int(np.max(dataset.pharm_idx[:, 1]
+                                       - dataset.pharm_idx[:, 0]))
+        self.max_pharm = max_pharm
+        self.drop_last = drop_last
+        self._rng = np.random.default_rng(seed)
+        self._buckets: Dict[int, List[int]] = {}
+        for i in range(len(dataset)):
+            b = bucket_size(dataset.prot_size(i), prot_bucket_multiple)
+            self._buckets.setdefault(b, []).append(i)
+
+    def __len__(self) -> int:
+        total = 0
+        for idxs in self._buckets.values():
+            total += len(idxs) // self.batch_size
+            if not self.drop_last and len(idxs) % self.batch_size:
+                total += 1
+        return total
+
+    def __iter__(self) -> Iterator[PharmComplexBatch]:
+        batches = []
+        for bucket, idxs in self._buckets.items():
+            idxs = list(idxs)
+            if self.shuffle:
+                self._rng.shuffle(idxs)
+            for i in range(0, len(idxs), self.batch_size):
+                chunk = idxs[i:i + self.batch_size]
+                if self.drop_last and len(chunk) < self.batch_size:
+                    continue
+                batches.append((bucket, chunk))
+        if self.shuffle:
+            self._rng.shuffle(batches)
+        for bucket, chunk in batches:
+            yield self.dataset.pack_batch(chunk, max_pharm=self.max_pharm,
+                                          max_prot=bucket)

@@ -24,7 +24,7 @@ workaround), the port uses indexed loads and `scatter_add_`.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -230,9 +230,12 @@ class GVPMultiEdgeConv(nn.Module):
     def forward(self, node_feats: Dict[str, tuple],
                 node_masks: Dict[str, torch.Tensor], bundle: Dict[str, object],
                 src_vectors_zero: bool = False,
-                pp_src_group_size: int = 1) -> Dict[str, tuple]:
+                pp_src_group_size: int = 1,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, tuple]:
         """node_feats[nt] = (scalars [B,N,S], coords [B,N,3],
         vectors [B,N,V,3]); `bundle` from `edges.build_edge_bundle`.
+        `generator` draws the dropout masks in train mode.
 
         `src_vectors_zero`: the source vector channels are all zero (the
         first conv). `pp_src_group_size` = C > 1: every C consecutive
@@ -318,10 +321,10 @@ class GVPMultiEdgeConv(nn.Module):
             else:
                 s_msg = s_msg / nv
                 v_msg = v_msg / nv
-            s_msg, v_msg = self.dropout(s_msg, v_msg)
+            s_msg, v_msg = self.dropout(s_msg, v_msg, generator)
             h, v = self.message_layer_norms[nt](h + s_msg, v + v_msg)
             s_res, v_res = self.node_update_fns[nt]((h, v))
-            s_res, v_res = self.dropout(s_res, v_res)
+            s_res, v_res = self.dropout(s_res, v_res, generator)
             h, v = self.update_layer_norms[nt](h + s_res, v + v_res)
             # padded slots stay exactly zero
             out[nt] = (h * mask[..., None], x, v * mask[..., None, None])

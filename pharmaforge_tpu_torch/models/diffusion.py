@@ -1,8 +1,12 @@
 """Joint Gaussian diffusion over pharmacophore coordinates and types:
-the reverse sampling chain.
+the training loss and the reverse sampling chain.
 
 Port of `pharmaforge_tpu/models/diffusion.py` (`DiffusionConfig`, the
-schedule helpers and `sample_given_receptor` :350). The JAX package runs
+schedule helpers, `loss` :232 and `sample_given_receptor` :350). The
+loss draws its timesteps, noise and dropout masks from an explicit
+`torch.Generator` (or takes them injected), switches the model to train
+mode (dropout on) and returns tensors, so autograd differentiates it;
+sampling switches back to eval mode. The JAX package runs
 the chain as one `lax.scan`; here it is a Python loop over T whose every
 step calls the denoiser once. The chain keeps the JAX package's contract:
 injected-noise keys `x_T`, `h_T`, `pos`, `feat`; COM removal at every
@@ -207,6 +211,130 @@ class PharmacophoreDiffusion(nn.Module):
             a = torch.from_numpy(np.array(a))
         return a.to(device=self.device, dtype=dtype)
 
+    def loss(self, batch: PharmComplexBatch,
+             generator: Optional[torch.Generator] = None, train: bool = True,
+             phase: str = "train", noise: Optional[Dict[str, Any]] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Forward diffusion + denoiser + losses (reference
+        pharmacodiff.py:162-243, JAX diffusion.py:232-346), with masked
+        reductions. Returns (total loss, {name: scalar tensor}) under the
+        reference's metric names, prefixed with `phase`.
+
+        `train` sets train mode (dropout on) or eval mode. `noise` injects
+        the draws: 't_int' [B] int, 'eps_x' [B,F,3], 'eps_h' [B,F,nf];
+        draws not injected, and the dropout masks, come from `generator`
+        (on the model's device), which is then required."""
+        cfg = self.config
+        self.train(train)
+        dev = self.device
+        noise = dict(noise or {})
+        pharm_mask = self._tensor(batch.pharm_mask, torch.bool)
+        prot_mask = self._tensor(batch.prot_mask, torch.bool)
+        fmask = pharm_mask.to(torch.float32)
+        b = pharm_mask.shape[0]
+
+        def draw(name, fn):
+            if name in noise:
+                return self._tensor(noise[name])
+            if generator is None:
+                raise ValueError(f"loss: no generator to draw {name!r}")
+            return fn()
+
+        # normalize features (pharmacodiff.py:80-82,168)
+        h0 = self._tensor(batch.pharm_h, torch.float32) \
+            / cfg.pharm_feat_norm_constant
+        x0 = self._tensor(batch.pharm_x, torch.float32)
+        prot_x = self._tensor(batch.prot_x, torch.float32)
+        prot_h = self._tensor(batch.prot_h, torch.float32)
+        # pp neighbours + geometry: translation invariant, from the raw
+        # pocket coordinates
+        _, pp_edge = build_pp_edge(prot_x, prot_mask, self.cutoffs["pp"],
+                                   cfg.pp_k_max)
+
+        # remove the pharmacophore COM from the complex (pharmacodiff.py:179)
+        com = masked_com(x0, pharm_mask)
+        x0 = (x0 - com[:, None]) * fmask[..., None]
+        prot_x = prot_x - com[:, None]
+        x0_clean, h0_clean = x0, h0
+
+        t_int = draw("t_int", lambda: torch.randint(
+            0, cfg.n_timesteps, (b,), generator=generator,
+            device=dev)).long()
+        t = t_int.to(torch.float32) / cfg.n_timesteps
+        eps_x = draw("eps_x", lambda: torch.randn(
+            x0.shape, generator=generator, device=dev)).float() \
+            * fmask[..., None]
+        eps_h = draw("eps_h", lambda: torch.randn(
+            h0.shape, generator=generator, device=dev)).float() \
+            * fmask[..., None]
+
+        gamma_t = self._tensor(np.asarray(self.gamma_table, np.float32))[
+            t_int]
+        alpha_t = alpha_of_gamma(gamma_t)[:, None, None]
+        sigma_t = sigma_of_gamma(gamma_t)[:, None, None]
+        x_t = alpha_t * x0 + sigma_t * eps_x
+        h_t = alpha_t * h0 + sigma_t * eps_h
+
+        sampled_com = torch.zeros_like(com)
+        if cfg.remove_com:
+            sampled_com = masked_com(x_t, pharm_mask)
+            x_t = (x_t - sampled_com[:, None]) * fmask[..., None]
+            prot_x = prot_x - sampled_com[:, None]
+
+        h_dyn, x_dyn = self.dynamics(h_t, x_t, pharm_mask, prot_h, prot_x,
+                                     prot_mask, t, pp_edge=pp_edge,
+                                     generator=generator)
+
+        # losses (pharmacodiff.py:204-232)
+        if cfg.endpoint_param_feat:
+            h0_pred = h_dyn
+            labels = torch.argmax(h0_clean, dim=-1)
+            logz = F.log_softmax(h_dyn, dim=-1)
+            h_loss = -torch.gather(logz, -1, labels[..., None])[..., 0]
+        else:
+            h_loss = torch.sum(torch.square(eps_h - h_dyn), dim=-1)
+            h0_pred = (h_t - sigma_t * h_dyn) / alpha_t
+        if cfg.endpoint_param_coord:
+            if cfg.remove_com:
+                x_dyn = x_dyn + sampled_com[:, None]
+            x0_pred = x_dyn
+            x_loss = torch.sum(torch.square(x0_pred - x0_clean), dim=-1)
+        else:
+            x_loss = torch.sum(torch.square(eps_x - x_dyn), dim=-1)
+            x0_pred = (x_t - sigma_t * x_dyn) / alpha_t
+
+        weight_metric = (1.0 - t[:, None]) * fmask
+        weight_loss = weight_metric if cfg.weighted_loss else fmask
+        h_loss = torch.sum(h_loss * weight_loss)
+        x_loss = torch.sum(x_loss * weight_loss)
+        n_valid = torch.clamp(torch.sum(fmask), min=1.0)
+        losses = {
+            f"{phase} pos loss": x_loss / (n_valid * 3.0),
+            f"{phase} feat loss": h_loss / (n_valid * float(cfg.pharm_nf)),
+        }
+        total = losses[f"{phase} pos loss"] + losses[f"{phase} feat loss"]
+        losses[f"{phase} total loss"] = total
+
+        # metrics (pharmacodiff.py:234-239), gradient-free
+        pos_err = torch.sum(torch.square(x0_pred.detach() - x0_clean), dim=-1)
+        acc = (torch.argmax(h0_pred.detach(), dim=-1)
+               == torch.argmax(h0_clean, dim=-1)).to(torch.float32)
+        metrics = {
+            f"{phase} position error": torch.sum(pos_err * fmask) / n_valid,
+            f"{phase} weighted position error":
+                torch.sum(pos_err * weight_metric) / n_valid,
+            f"{phase} accuracy": torch.sum(acc * fmask) / n_valid,
+            f"{phase} weighted accuracy":
+                torch.sum(acc * weight_metric) / n_valid,
+        }
+        metrics[f"{phase} total error"] = (
+            metrics[f"{phase} position error"] + 1.0
+            - metrics[f"{phase} accuracy"])
+        metrics[f"{phase} weighted total error"] = (
+            metrics[f"{phase} weighted position error"] + 1.0
+            - metrics[f"{phase} weighted accuracy"])
+        return total, {**losses, **metrics}
+
     @torch.no_grad()
     def sample_given_receptor(self, batch: PharmComplexBatch,
                               generator: Optional[torch.Generator] = None,
@@ -231,6 +359,7 @@ class PharmacophoreDiffusion(nn.Module):
         carry one pocket; the first conv's prot-prot messages are then
         computed once per group (numerically the same result)."""
         cfg = self.config
+        self.eval()
         if pp_k_out:
             raise NotImplementedError(
                 "pp_k_out > 0 (the pocket-copy correction path) is not "

@@ -14,7 +14,7 @@ messages (`pocket_group_size`) is kept.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -112,7 +112,8 @@ class PharmRecDynamics(nn.Module):
             vector_size=vector_size, n_gvps=n_noise_gvps))
 
     def forward(self, pharm_h_t, pharm_x_t, pharm_mask, prot_h, prot_x,
-                prot_mask, t, pp_edge, pocket_group_size: int = 1):
+                prot_mask, t, pp_edge, pocket_group_size: int = 1,
+                generator: Optional[torch.Generator] = None):
         """pharm_h_t [B,F,nf], pharm_x_t [B,F,3], pharm_mask [B,F] bool,
         prot_h [B,P,rec_nf], prot_x [B,P,3], prot_mask [B,P] bool, t [B] in
         [0, 1]. `pp_edge` is the static prot-prot edge (EdgeData, or
@@ -120,7 +121,8 @@ class PharmRecDynamics(nn.Module):
 
         `pocket_group_size` = C > 1 declares that every C consecutive rows
         share one pocket and one t; the first conv then computes the
-        prot-prot messages once per group."""
+        prot-prot messages once per group. `generator` draws the dropout
+        masks in train mode."""
         b, f = pharm_mask.shape
         p = prot_mask.shape[1]
         pmask = pharm_mask.to(pharm_x_t.dtype)[..., None]
@@ -145,7 +147,8 @@ class PharmRecDynamics(nn.Module):
                 node_feats, node_masks, bundle, src_vectors_zero=(i == 0),
                 # prot state is copy-independent only before the first
                 # fp update lands
-                pp_src_group_size=pocket_group_size if i == 0 else 1)
+                pp_src_group_size=pocket_group_size if i == 0 else 1,
+                generator=generator)
         eps_h, eps_x = self.noise_predictor.noise_predictor(
             node_feats["pharm"][0], node_feats["pharm"][2])
         return eps_h * pmask, eps_x * pmask

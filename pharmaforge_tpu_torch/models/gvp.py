@@ -103,20 +103,27 @@ def gvp_specs(n: int, vector_size: int, scalar_size: int) -> list:
 
 class GVPDropout(nn.Module):
     """Scalar dropout plus whole-3-vector dropout (reference
-    gvp.py:118-149); the identity in eval mode."""
+    gvp.py:118-149, JAX gvp.py `gvp_dropout`); the identity in eval mode.
+    Both masks are drawn from the explicit `generator` (which must lie on
+    the tensors' device): the scalar mask over `feats`, then one keep flag
+    per 3-vector."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, feats: torch.Tensor, vectors: torch.Tensor
-                ) -> GVPData:
+    def forward(self, feats: torch.Tensor, vectors: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> GVPData:
         if not self.training or self.rate == 0.0:
             return feats, vectors
+        if generator is None:
+            raise ValueError("GVPDropout in train mode needs a generator")
         keep = 1.0 - self.rate
-        feats = nn.functional.dropout(feats, self.rate, training=True)
-        vec_mask = torch.bernoulli(torch.full(
-            vectors.shape[:-1], keep, device=vectors.device))
+        feat_mask = torch.rand(feats.shape, generator=generator,
+                               device=feats.device) < keep
+        feats = torch.where(feat_mask, feats / keep, 0.0)
+        vec_mask = torch.rand(vectors.shape[:-1], generator=generator,
+                              device=vectors.device) < keep
         return feats, vectors * vec_mask[..., None] / keep
 
 

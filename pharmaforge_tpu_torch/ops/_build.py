@@ -28,7 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # so its distances round after every operation exactly as the plain
 # version does (it is held bit-equal). pp_message is held to a tolerance
 # and keeps fused multiply-adds.
-KERNEL_FLAGS = {"knn_select": ("--fmad=false",), "pp_message": ()}
+KERNEL_FLAGS = {"knn_select": ("--fmad=false",), "pp_message": (),
+                "pp_message_bwd": ()}
 
 
 def nvcc_flags(name: str) -> tuple:

@@ -1,20 +1,21 @@
-"""Fused prot-prot message chain + masked K-sum: the CUDA kernel's wrapper
-and its plain PyTorch version.
+"""Fused prot-prot message chain + masked K-sum: the CUDA kernels'
+wrapper and its plain PyTorch version.
 
-The kernel (`csrc/pp_message.cu`) replaces the Pallas TPU kernel
-`pharmaforge_tpu/ops/pallas/pp_message.py::_kernel` (launched by
-`_pallas_impl`). The middle convolutions of the reference-size model run
-the prot-prot message GVP chain per copy of the pocket at full width; this
-computes, for every batch row and destination atom, the gather of its K
-neighbours' node-table rows, the whole message chain on each edge row and
-the masked sum over the K slots, without writing a [B, Nd, K, ...] edge
-tensor to device memory.
+Two kernels, one differentiable function:
 
-Bound on the card: at the sampling shape (B=120, Nd=P=230, K=16, S=128,
-V=16, three message GVPs) about 43 GFLOP a call against about 35 MB of
-inputs and outputs, so it is bound by operations (PERF.md). The kernel
-runs the products on the fp32 FMA units with every per-edge activation
-kept in shared memory (see the source's note).
+* K2, `csrc/pp_message.cu`, replaces the Pallas TPU kernel
+  `pharmaforge_tpu/ops/pallas/pp_message.py::_kernel` (launched by
+  `_pallas_impl`). The middle convolutions of the reference-size model run
+  the prot-prot message GVP chain per copy of the pocket at full width;
+  K2 computes, for every batch row and destination atom, the gather of its
+  K neighbours' node-table rows, the whole message chain on each edge row
+  and the masked sum over the K slots, without writing a [B, Nd, K, ...]
+  edge tensor to device memory.
+* K3, `csrc/pp_message_bwd.cu`, replaces the backward kernel
+  `_bwd_kernel` (launched by `_pallas_bwd_impl`): it recomputes the chain
+  per destination tile, backpropagates through it, scatters the node-table
+  gradients and accumulates every weight gradient, the edge terms' weights
+  (`w1_d`, `b1`, `wh0`) included.
 
 Numerics follow the JAX package's twin (`_ref_impl`): the node tables and
 edge terms arrive in the compute dtype, every product is accumulated in
@@ -24,16 +25,21 @@ the masked K-sum is fp32. The edge terms `rterm = rbf @ W1_d + b1` and
 `dirterm = x_dir (x) Wh[0]` are computed here, at pocket-group level, by
 plain PyTorch for both the kernel and the plain version.
 
-`fused_message_agg` launches the kernel for CUDA tensors (or raises) and
-runs `message_agg_reference` for CPU tensors. `launches` counts kernel
-launches. The function is forward only: its backward is the JAX package's
-second kernel (`_bwd_kernel`), which comes with training, so an input that
-requires grad while grad is enabled raises.
+`fused_message_agg` runs `message_agg_reference` for CPU tensors
+(differentiated by autograd) and, for CUDA tensors, a
+`torch.autograd.Function` whose forward launches K2 and whose backward
+launches K3 (or raises: there is no fallback). Its inputs are the node
+tables and the split weights (`split_weights`), views of the GVP
+parameters, so autograd routes each weight gradient back to its parameter.
+The edge geometry gets no gradient, as in the JAX backward kernel: an
+`x_dir` or `d_rbf` that requires grad raises. `launches` counts K2
+launches and `bwd_launches` K3 launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Sequence, Tuple
 
@@ -41,13 +47,18 @@ import torch
 
 # shared memory a block may use on Hopper (bytes)
 _MAX_SMEM = 232448
-# the kernel's limits (csrc/pp_message.cu): edge rows per block, widths
+# the kernels' limits (csrc/pp_message*.cu): edge rows per block, widths
 _MAX_K = 64
 _MAX_WIDTH = 128
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the plain version also runs in float64 (every product and sum in fp64):
+# the reference K3's fp32 weight gradients, sums over ~20 k edge rows, are
+# held against, since fp32 autograd rounds those sums as much as K3 does
+REFERENCE_DTYPES = {**COMPUTE_DTYPES, "float64": torch.float64}
 
 launches = 0
+bwd_launches = 0
 
 Tensors = Tuple[torch.Tensor, torch.Tensor]
 
@@ -72,13 +83,19 @@ def split_weights(gvps: Sequence[torch.nn.Module], s: int, r: int) -> tuple:
     return tuple(out)
 
 
+def _acc(dt: torch.dtype) -> torch.dtype:
+    """Accumulation dtype: fp32, or fp64 for the float64 plain version."""
+    return torch.float64 if dt == torch.float64 else torch.float32
+
+
 def _edge_terms(weights: tuple, x_dir: torch.Tensor, d_rbf: torch.Tensor,
                 dt: torch.dtype) -> Tensors:
     """Group-level edge terms in the compute dtype: rterm [G,Nd,K,S] (an
     fp32 product plus the bias, rounded once) and dirterm [G,Nd,K,3,H0]."""
     wh0, _, w1_d, _, b1 = weights[:5]
-    rterm = (d_rbf.to(dt).float() @ w1_d.to(dt).float()
-             + b1.to(dt).float()).to(dt)
+    acc = _acc(dt)
+    rterm = (d_rbf.to(dt).to(acc) @ w1_d.to(dt).to(acc)
+             + b1.to(dt).to(acc)).to(dt)
     dirterm = x_dir.to(dt)[..., :, None] * wh0.to(dt)
     return rterm, dirterm
 
@@ -96,22 +113,23 @@ def _chain_plain(tab_s, tab_v, idx, mask, rterm, dirterm, weights, dt,
     g_s = tab_s[rows, idx]                           # [B,Nd,K,S]
     g_v = tab_v[rows, idx]                           # [B,Nd,K,3,H0]
     w = [a.to(dt) for a in weights]
+    acc = _acc(dt)
 
     def dot(a, m):
-        # fp32 accumulation, one rounding to the compute dtype
-        return torch.matmul(a.float(), m.float()).to(dt)
+        # fp32 (fp64) accumulation, one rounding to the compute dtype
+        return torch.matmul(a.to(acc), m.to(acc)).to(dt)
 
     def norms(vh):
-        sq = vh.float() ** 2
+        sq = vh.to(acc) ** 2
         tot = sq[..., 0, :] + sq[..., 1, :] + sq[..., 2, :]
         return torch.sqrt(torch.clamp(tot, min=1e-8)).to(dt)
 
     def silu(x):
-        xf = x.float()
+        xf = x.to(acc)
         return (xf * torch.sigmoid(xf)).to(dt)
 
     def sigmoid(x):
-        return torch.sigmoid(x.float()).to(dt)
+        return torch.sigmoid(x.to(acc)).to(dt)
 
     _, wu, _, w1_sh, _, wg, bg = w[:7]
     vh = g_v + dirterm
@@ -124,9 +142,9 @@ def _chain_plain(tab_s, tab_v, idx, mask, rterm, dirterm, weights, dt,
         feats = silu(dot(feats, w1f) + dot(norms(vh), w1sh) + b1j)
         gate = sigmoid(dot(feats, wgj) + bgj)
         vec = gate[..., None, :] * dot(vh, wuj)
-    m = mask.float()[..., None]
-    s_sum = torch.sum(feats.float() * m, dim=2)
-    v_sum = torch.sum(vec.float() * m[..., None], dim=2)
+    m = mask.to(acc)[..., None]
+    s_sum = torch.sum(feats.to(acc) * m, dim=2)
+    v_sum = torch.sum(vec.to(acc) * m[..., None], dim=2)
     return s_sum, v_sum.transpose(-1, -2)
 
 
@@ -136,9 +154,11 @@ def message_agg_reference(pre_s: torch.Tensor,
                           scalar_size: int, vector_size: int, rbf_dim: int,
                           compute_dtype: str = "float32",
                           copies: int = 1) -> Tensors:
-    """Plain version, the contract of `fused_message_agg`. Differentiable."""
+    """Plain version, the contract of `fused_message_agg`. Differentiable:
+    autograd through it is the plain version of K3. `compute_dtype` may
+    also be "float64" (sums returned in fp64)."""
     del vector_size
-    dt = COMPUTE_DTYPES[compute_dtype]
+    dt = REFERENCE_DTYPES[compute_dtype]
     weights = split_weights(layer_params, scalar_size, rbf_dim)
     rterm, dirterm = _edge_terms(weights, edge.x_dir, edge.d_rbf, dt)
     tab_v = torch.stack(list(vh_planes), dim=2).to(dt)
@@ -147,10 +167,10 @@ def message_agg_reference(pre_s: torch.Tensor,
 
 
 def _pack_weights(weights: tuple, dt: torch.dtype) -> torch.Tensor:
-    """The kernel's weight buffer: GVP 0's (w1_sh, wg, bg, wu), then each
+    """The kernels' weight buffer: GVP 0's (w1_sh, wg, bg, wu), then each
     later GVP's (wh, wu, w1f, w1sh, b1, wg, bg), each flattened row-major
     ([in, out]) and zero-padded to a multiple of 8 elements
-    (csrc/pp_message.cu, `layer0_offsets` / `layerj_offsets`)."""
+    (csrc/pp_message*.cu, `layer0_offsets` / `layerj_offsets`)."""
     order = [weights[3], weights[5], weights[6], weights[1]]
     for j in range(7, len(weights), 7):
         whj, wuj, w1f, w1sh, b1j, wgj, bgj = weights[j:j + 7]
@@ -179,9 +199,197 @@ def _launcher():
     return lib
 
 
+@functools.cache
+def _bwd_launcher():
+    from pharmaforge_tpu_torch.ops import _build
+    lib = _build.load("pp_message_bwd")
+    fn = lib.pp_message_bwd_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
+                   + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 4)
+    fn.restype = ctypes.c_int
+    lib.pp_message_bwd_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.pp_message_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.pp_message_bwd_grads_size.argtypes = [ctypes.c_int] * 6
+    lib.pp_message_bwd_grads_size.restype = ctypes.c_int
+    return lib
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"fused_message_agg: {msg}")
+
+
+@dataclasses.dataclass(frozen=True)
+class _Dims:
+    """Shapes of one call (B = G * copies)."""
+    b: int
+    p: int
+    g: int
+    copies: int
+    nd: int
+    k: int
+    s: int
+    v: int
+    h0: int
+    hj: int
+    r: int
+    n_layers: int
+    dt: torch.dtype
+
+
+def _dims(pre_s, planes, edge, weights, *, scalar_size, vector_size,
+          rbf_dim, compute_dtype, copies) -> _Dims:
+    """Check a CUDA call's inputs against the kernels' contract."""
+    b, p, s = pre_s.shape
+    g, nd, k = edge.mask.shape
+    h0 = planes[0].shape[-1]
+    n_layers = 1 + (len(weights) - 7) // 7
+    hj = weights[7].shape[1] if n_layers > 1 else 0
+    v = vector_size
+    _check(s == scalar_size, f"pre_s has {s} channels, scalar_size is "
+                             f"{scalar_size}")
+    _check(g * copies == b, f"edge batch {g} x copies {copies} != table "
+                            f"batch {b}")
+    _check(len(planes) == 3 and all(tuple(q.shape) == (b, p, h0)
+                                    for q in planes),
+           "vh_planes must be three [B, P, H0] tensors")
+    _check(tuple(edge.idx.shape) == (g, nd, k), "idx and mask shapes differ")
+    _check(tuple(edge.d_rbf.shape) == (g, nd, k, rbf_dim),
+           f"d_rbf must be [G, Nd, K, {rbf_dim}]")
+    _check(1 <= k <= _MAX_K, f"K={k} outside [1, {_MAX_K}]")
+    _check(max(s, v, h0, hj, rbf_dim) <= _MAX_WIDTH,
+           f"widths S={s} V={v} H0={h0} Hj={hj} R={rbf_dim} above "
+           f"{_MAX_WIDTH}")
+    _check(all(weights[j].shape[1] == hj for j in range(7, len(weights), 7)),
+           "every message GVP after the first must have one hidden width")
+    dev = pre_s.device
+    for name, t in (("pre_s", pre_s), ("vh_planes", planes[0]),
+                    ("idx", edge.idx), ("mask", edge.mask),
+                    ("x_dir", edge.x_dir), ("d_rbf", edge.d_rbf),
+                    ("weights", weights[0])):
+        _check(t.device == dev, f"{name} on {t.device}, pre_s on {dev}")
+    return _Dims(b, p, g, copies, nd, k, s, v, h0, hj, rbf_dim, n_layers,
+                 COMPUTE_DTYPES[compute_dtype])
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launch_fwd(d: _Dims, tab_s, tab_v, idx, mask, rterm, dirterm,
+                packed) -> Tensors:
+    """K2 on contiguous kernel inputs: (s_sum [B,Nd,S], v_sum [B,Nd,V,3])."""
+    lib = _launcher()
+    _check(lib.pp_message_smem_bytes(d.s, d.v, d.h0, d.hj, d.n_layers)
+           <= _MAX_SMEM, "the widths need more shared memory than a block "
+                         "has")
+    _check(packed.numel() == lib.pp_message_weights_size(
+        d.s, d.v, d.h0, d.hj, d.n_layers),
+        "packed weight layout differs from the kernel's")
+    dev = tab_s.device
+    s_sum = torch.empty((d.b, d.nd, d.s), dtype=torch.float32, device=dev)
+    v_sum = torch.empty((d.b, d.nd, d.v, 3), dtype=torch.float32, device=dev)
+    if d.b * d.nd == 0:
+        return s_sum, v_sum
+    with torch.cuda.device(dev):
+        err = lib.pp_message_launch(
+            int(d.dt == torch.bfloat16), tab_s.data_ptr(), tab_v.data_ptr(),
+            idx.data_ptr(), mask.data_ptr(), rterm.data_ptr(),
+            dirterm.data_ptr(), packed.data_ptr(), d.b, d.p, d.g, d.copies,
+            d.nd, d.k, d.s, d.v, d.h0, d.hj, d.n_layers, s_sum.data_ptr(),
+            v_sum.data_ptr(), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"pp_message kernel launch failed: CUDA error "
+                           f"{err}")
+    global launches
+    launches += 1
+    return s_sum, v_sum
+
+
+def _launch_bwd(d: _Dims, saved: tuple, ds: torch.Tensor, dv: torch.Tensor
+                ) -> tuple:
+    """K3 on K2's kernel inputs and the output cotangents ds [B,Nd,S],
+    dv [B,Nd,V,3]: (d_tab_s [B,P,S] and d_tab_v [B,P,3,H0] fp32, the flat
+    weight gradients in `split_weights` order, summed in fp64)."""
+    tab_s, tab_v, idx, mask, rterm, dirterm, rbf, xdir, packed = saved
+    lib = _bwd_launcher()
+    _check(lib.pp_message_bwd_smem_bytes(d.s, d.v, d.h0, d.hj, d.r,
+                                         d.n_layers) <= _MAX_SMEM,
+           "the widths need more shared memory than a backward block has")
+    dev = tab_s.device
+    ds = ds.to(torch.float32).contiguous()
+    dv = dv.to(torch.float32).contiguous()
+    _check(tuple(ds.shape) == (d.b, d.nd, d.s)
+           and tuple(dv.shape) == (d.b, d.nd, d.v, 3),
+           "output cotangents differ from the outputs' shapes")
+    d_tab_s = torch.zeros((d.b, d.p, d.s), dtype=torch.float32, device=dev)
+    d_tab_v = torch.zeros((d.b, d.p, 3, d.h0), dtype=torch.float32,
+                          device=dev)
+    d_w = torch.zeros(lib.pp_message_bwd_grads_size(
+        d.s, d.v, d.h0, d.hj, d.r, d.n_layers), dtype=torch.float64,
+        device=dev)
+    if d.b * d.nd == 0:
+        return d_tab_s, d_tab_v, d_w
+    with torch.cuda.device(dev):
+        err = lib.pp_message_bwd_launch(
+            int(d.dt == torch.bfloat16), tab_s.data_ptr(), tab_v.data_ptr(),
+            idx.data_ptr(), mask.data_ptr(), rterm.data_ptr(),
+            dirterm.data_ptr(), rbf.data_ptr(), xdir.data_ptr(),
+            packed.data_ptr(), ds.data_ptr(), dv.data_ptr(), d.b, d.p, d.g,
+            d.copies, d.nd, d.k, d.s, d.v, d.h0, d.hj, d.r, d.n_layers,
+            d_tab_s.data_ptr(), d_tab_v.data_ptr(), d_w.data_ptr(),
+            _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"pp_message_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    global bwd_launches
+    bwd_launches += 1
+    return d_tab_s, d_tab_v, d_w
+
+
+def kernel_inputs(d: _Dims, pre_s, planes, edge, weights) -> tuple:
+    """The contiguous tensors K2 and K3 read: (tab_s [B,P,S],
+    tab_v [B,P,3,H0], idx int32, mask fp32, rterm, dirterm, rbf, x_dir,
+    packed weights), in the compute dtype where not stated."""
+    dt = d.dt
+    rterm, dirterm = _edge_terms(weights, edge.x_dir, edge.d_rbf, dt)
+    return (pre_s.to(dt).contiguous(),
+            torch.stack(list(planes), dim=2).to(dt).contiguous(),
+            edge.idx.to(torch.int32).contiguous(),
+            edge.mask.to(torch.float32).contiguous(),
+            rterm.contiguous(), dirterm.contiguous(),
+            edge.d_rbf.to(dt).contiguous(), edge.x_dir.to(dt).contiguous(),
+            _pack_weights(weights, dt))
+
+
+class _FusedMessageAgg(torch.autograd.Function):
+    """K2 forward, K3 backward. Inputs: the call's shapes, the edge
+    descriptors (no gradient), pre_s, the three vh planes and the split
+    weights."""
+
+    @staticmethod
+    def forward(ctx, d: _Dims, edge, pre_s, p0, p1, p2, *weights):
+        saved = kernel_inputs(d, pre_s, (p0, p1, p2), edge, weights)
+        out = _launch_fwd(d, *saved[:6], saved[8])
+        ctx.d = d
+        ctx.shapes = [(w.shape, w.dtype) for w in weights]
+        ctx.table_dtypes = (pre_s.dtype, p0.dtype, p1.dtype, p2.dtype)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(*saved)
+        return out
+
+    @staticmethod
+    def backward(ctx, ds, dv):
+        d = ctx.d
+        d_tab_s, d_tab_v, d_w = _launch_bwd(d, ctx.saved_tensors, ds, dv)
+        grads, off = [], 0
+        for shape, dtype in ctx.shapes:
+            n = shape.numel()
+            grads.append(d_w[off:off + n].view(shape).to(dtype))
+            off += n
+        dt_s, *dt_v = ctx.table_dtypes
+        return (None, None, d_tab_s.to(dt_s),
+                *(d_tab_v[:, :, c].to(dt_v[c]) for c in range(3)), *grads)
 
 
 def fused_message_agg(pre_s: torch.Tensor, vh_planes: Sequence[torch.Tensor],
@@ -190,7 +398,7 @@ def fused_message_agg(pre_s: torch.Tensor, vh_planes: Sequence[torch.Tensor],
                       compute_dtype: str = "float32",
                       copies: int = 1) -> Tensors:
     """Fused (gather -> message chain -> masked K-sum) for the prot-prot
-    edge type.
+    edge type; differentiable in the node tables and the GVP weights.
 
     pre_s:      [B, P, S] node-level h_src @ W1_h (compute dtype)
     vh_planes:  3 x [B, P, H0] node-level v_src @ Wh[1:], one per spatial
@@ -204,12 +412,12 @@ def fused_message_agg(pre_s: torch.Tensor, vh_planes: Sequence[torch.Tensor],
     v_sum [B, Nd, V, 3] fp32; the caller normalizes."""
     weights = split_weights(layer_params, scalar_size, rbf_dim)
     planes = list(vh_planes)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (pre_s, *planes, edge.x_dir,
-                                      edge.d_rbf, *weights)):
+    if torch.is_grad_enabled() and (edge.x_dir.requires_grad
+                                    or edge.d_rbf.requires_grad):
         raise RuntimeError(
-            "fused_message_agg has no backward yet (the JAX package's "
-            "backward kernel is not ported); call it under torch.no_grad()")
+            "fused_message_agg: the edge geometry (x_dir, d_rbf) gets no "
+            "gradient (the backward kernel, like the JAX package's, "
+            "differentiates the node tables and weights only); detach it")
     dev = pre_s.device
     kw = dict(scalar_size=scalar_size, vector_size=vector_size,
               rbf_dim=rbf_dim, compute_dtype=compute_dtype, copies=copies)
@@ -217,60 +425,5 @@ def fused_message_agg(pre_s: torch.Tensor, vh_planes: Sequence[torch.Tensor],
         return message_agg_reference(pre_s, planes, edge, layer_params, **kw)
     if dev.type != "cuda":
         raise ValueError(f"fused_message_agg: unsupported device {dev}")
-
-    dt = COMPUTE_DTYPES[compute_dtype]
-    b, p, s = pre_s.shape
-    g, nd, k = edge.mask.shape
-    v = vector_size
-    h0 = planes[0].shape[-1]
-    n_layers = 1 + (len(weights) - 7) // 7
-    hj = weights[7].shape[1] if n_layers > 1 else 0
-    _check(s == scalar_size, f"pre_s has {s} channels, scalar_size is "
-                             f"{scalar_size}")
-    _check(g * copies == b, f"edge batch {g} x copies {copies} != table "
-                            f"batch {b}")
-    _check(len(planes) == 3 and all(tuple(q.shape) == (b, p, h0)
-                                    for q in planes),
-           "vh_planes must be three [B, P, H0] tensors")
-    _check(tuple(edge.idx.shape) == (g, nd, k), "idx and mask shapes differ")
-    _check(1 <= k <= _MAX_K, f"K={k} outside [1, {_MAX_K}]")
-    _check(max(s, v, h0, hj) <= _MAX_WIDTH,
-           f"widths S={s} V={v} H0={h0} Hj={hj} above {_MAX_WIDTH}")
-    _check(all(weights[j].shape[1] == hj for j in range(7, len(weights), 7)),
-           "every message GVP after the first must have one hidden width")
-    for name, t in (("pre_s", pre_s), ("vh_planes", planes[0]),
-                    ("idx", edge.idx), ("mask", edge.mask),
-                    ("x_dir", edge.x_dir), ("d_rbf", edge.d_rbf),
-                    ("weights", weights[0])):
-        _check(t.device == dev, f"{name} on {t.device}, pre_s on {dev}")
-    lib = _launcher()
-    _check(lib.pp_message_smem_bytes(s, v, h0, hj, n_layers) <= _MAX_SMEM,
-           "the widths need more shared memory than a block has")
-
-    rterm, dirterm = _edge_terms(weights, edge.x_dir, edge.d_rbf, dt)
-    packed = _pack_weights(weights, dt)
-    _check(packed.numel() == lib.pp_message_weights_size(s, v, h0, hj,
-                                                          n_layers),
-           "packed weight layout differs from the kernel's")
-    tab_s = pre_s.to(dt).contiguous()
-    tab_v = torch.stack(planes, dim=2).to(dt).contiguous()
-    idx = edge.idx.to(torch.int32).contiguous()
-    mask = edge.mask.to(torch.float32).contiguous()
-    rterm, dirterm = rterm.contiguous(), dirterm.contiguous()
-    s_sum = torch.empty((b, nd, s), dtype=torch.float32, device=dev)
-    v_sum = torch.empty((b, nd, v, 3), dtype=torch.float32, device=dev)
-    if b * nd == 0:
-        return s_sum, v_sum
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pp_message_launch(
-            int(dt == torch.bfloat16), tab_s.data_ptr(), tab_v.data_ptr(),
-            idx.data_ptr(), mask.data_ptr(), rterm.data_ptr(),
-            dirterm.data_ptr(), packed.data_ptr(), b, p, g, copies, nd, k, s,
-            v, h0, hj, n_layers, s_sum.data_ptr(), v_sum.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"pp_message kernel launch failed: CUDA error "
-                           f"{err}")
-    global launches
-    launches += 1
-    return s_sum, v_sum
+    d = _dims(pre_s, planes, edge, weights, **kw)
+    return _FusedMessageAgg.apply(d, edge, pre_s, *planes, *weights)

@@ -236,7 +236,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'pharmaforge_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'pharmaforge_tpu', 'optax',\n"
+        "              'orbax', 'wandb', 'yaml'))\n"
         "print(len([n for n in sys.modules\n"
         "           if n.startswith('pharmaforge_tpu_torch.')]))\n"
         "print(bad)\n")
@@ -244,7 +245,7 @@ def test_port_and_chip_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     n_mods, bad = res.stdout.strip().splitlines()
-    assert int(n_mods) >= 15
+    assert int(n_mods) >= 34
     assert bad == "[]"
 
 

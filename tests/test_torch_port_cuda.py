@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port on the card: the CUDA kernels against their plain
-versions and the golden chain through K1.
+"""PyTorch/CUDA port on the card: the CUDA kernels (K1, K2, K3) against
+their plain versions, the golden chain through K1, and one full-width
+training step on the card against the CPU.
 
 Every test here is marked `cuda` and skips without a card. The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -146,3 +147,57 @@ def test_golden_knn_chain_on_card(dev):
     traj = out["traj_x"].cpu().numpy()
     for i, m in enumerate(sizes):
         assert np.abs(traj[1:, i, :m] - data[f"ref_frames_{i}"]).max() < 2e-3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["train", "copies=3", "hj=V+1",
+                                  "masked destination", "repeated source",
+                                  "K=1", "odd batch B=3"])
+def test_pp_backward_kernel_matches_plain(dev, case, dtype):
+    """K3 against autograd through the plain version at chip_smoke.py's
+    ppbwd cases: fp32 within rtol 2e-4 / atol 2e-5 of the plain version
+    run in fp64; bf16 against the fp32
+    plain gradients within max(0.25, 1.5 x the plain version's own bf16
+    deviation) relative to max(|b|, 1) (chip_smoke.PPBWD_TOL, the reason
+    beside it). The value reached is printed."""
+    import chip_smoke as cs
+    from pharmaforge_tpu_torch.ops import pp_message as ppm
+    args, kw = cs.pp_case(dev, dtype=dtype, table_dtype=torch.float32,
+                          **cs.PPBWD_CASES[case])
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, nd = args[0].shape[0], args[2].mask.shape[1]
+    cot = (torch.randn(b, nd, kw["scalar_size"], generator=gen, device=dev),
+           torch.randn(b, nd, kw["vector_size"], 3, generator=gen,
+                       device=dev))
+    before = ppm.bwd_launches
+    got = cs.ppbwd_grads(args, kw, True, cot)
+    torch.cuda.synchronize()
+    assert ppm.bwd_launches == before + 1
+    want = cs.ppbwd_want(args, kw, dtype, cot)
+    bound = None
+    if dtype == "bfloat16":
+        floor = cs.bf16_rel(cs.ppbwd_grads(args, kw, False, cot), want)
+        bound = max(cs.PPBWD_TOL["bfloat16"], cs.PPBWD_BF16_FLOOR * floor)
+    print(f"{case} {dtype}: {cs.ppbwd_compare(case, got, want, dtype, bound)}")
+
+
+def test_one_train_step_on_card_matches_cpu(dev):
+    """One fp32 optimizer step's loss and gradients of the full-width
+    model (chip_smoke.train_config at dropout 0, injected noise) on the
+    card and on the CPU, through K1, K2 and K3 on the card."""
+    import tempfile
+    import chip_smoke as cs
+    from pharmaforge_tpu_torch.config.load_from_config import (
+        data_module_from_config, model_from_config)
+    from pharmaforge_tpu_torch.data.synthetic import (
+        make_synthetic_processed_dataset)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = make_synthetic_processed_dataset(
+            tmp, n_splits=3, samples_per_split=8, n_prot_range=(200, 230),
+            seed=11)
+        config = cs.train_config(str(data), batch_size=8)
+        dm = data_module_from_config(config)
+        dm.setup("fit")
+        batch = next(iter(dm.train_dataloader(0)))
+        print(cs.card_vs_cpu_step(model_from_config(config, device=dev),
+                                  batch))

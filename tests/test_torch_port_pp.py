@@ -194,13 +194,17 @@ def test_wrapper_raises_on_grad_and_other_devices(rng):
     c = k2_case(rng)
     gvps, kw = port_gvps(c), kw_of(c, "float32")
     planes = [t(q) for q in c["planes"]]
-    # the GVP parameters require grad: no backward kernel yet
-    with pytest.raises(RuntimeError, match="no backward"):
-        ppm.fused_message_agg(t(c["pre_s"]), planes, port_edge(c), gvps,
-                              **kw)
+    # the GVP parameters require grad: differentiable (K3 on the card);
+    # the edge geometry gets no gradient and must not require one
+    s_sum, _ = ppm.fused_message_agg(t(c["pre_s"]), planes, port_edge(c),
+                                     gvps, **kw)
+    assert s_sum.requires_grad
+    edge = port_edge(c)
+    edge = edge._replace(x_dir=edge.x_dir.requires_grad_(True))
+    with pytest.raises(RuntimeError, match="geometry"):
+        ppm.fused_message_agg(t(c["pre_s"]), planes, edge, gvps, **kw)
     with torch.no_grad():
-        ppm.fused_message_agg(t(c["pre_s"]), planes, port_edge(c), gvps,
-                              **kw)
+        ppm.fused_message_agg(t(c["pre_s"]), planes, edge, gvps, **kw)
     with pytest.raises(ValueError, match="unsupported device"):
         with torch.no_grad():
             ppm.fused_message_agg(t(c["pre_s"]).to("meta"), planes,
