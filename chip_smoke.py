@@ -30,9 +30,12 @@ Phases, one line each; any failure raises and the script exits non-zero:
                 on the card: the sampling shape (B=120 = 4 pockets x 30
                 copies, P=Nd=230, K=16, S=128, V=16, 3 GVPs) in bf16 and
                 fp32, and edge cases (copies=1 with Nd=40, hidden width
-                V+1, a fully masked destination, K=1, an odd batch);
-                device times of the kernel and the plain version, the
-                bound, the eager time;
+                V+1, a fully masked destination, K=1, an odd batch, every
+                slot an edge, Nd=233, K=64, widths 72/8/9), two calls
+                bit-equal; device times (graph replay) of the kernel in
+                bf16 and fp32 at the sampling shape and in fp32 at the
+                training shape, each beside its bound, of the plain
+                version, and the eager time;
 6. fullscale -- the reference-size model (n_convs=4, T=1000, endpoint,
                 bf16 edge chains, same widths, random weights from a seed)
                 sampling 4 synthetic 230-atom pockets x 30 through
@@ -530,14 +533,17 @@ PP_TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
 def pp_case(dev, *, dtype: str, n_groups: int = 4, copies: int = 30,
             atoms: int = 230, k: int = 16, nd=None, hj: int = 16,
             masked_row: bool = False, s: int = 128, v: int = 16,
-            slots=None, dup: bool = False, table_dtype=None):
+            slots=None, dup: bool = False, table_dtype=None,
+            cutoff: float = 3.5):
     """One K2 call as the main path makes it: the pp edges of synthetic
     pockets at pocket-group level, random node tables in the compute
     dtype (or `table_dtype`), a message chain with seeded weights. `nd`
     picks that many destination atoms per row (the compact-tail call, one
     row per group); `slots` pads the pockets' `atoms` to that many slots
     (the training batch); `dup` makes one source atom occur twice in one
-    destination's list and in a list of another tile."""
+    destination's list and in a list of another tile. `cutoff` is the pp
+    radius (3.5 A on the main path; a large one makes every slot of an
+    atom with K neighbours an edge)."""
     from pharmaforge_tpu_torch.models.conv import message_specs
     from pharmaforge_tpu_torch.models.edges import (EdgeData,
                                                     GroupedEdgeData,
@@ -553,7 +559,7 @@ def pp_case(dev, *, dtype: str, n_groups: int = 4, copies: int = 30,
         prot_x[i, :len(px)] = px
         prot_mask[i, :len(px)] = True
     _, ed = build_pp_edge(torch.from_numpy(prot_x).to(dev),
-                          torch.from_numpy(prot_mask).to(dev), 3.5, k)
+                          torch.from_numpy(prot_mask).to(dev), cutoff, k)
     gen = torch.Generator(device=dev).manual_seed(n_groups * 100 + k)
     if nd is not None:
         sel = torch.argsort(torch.rand(n_groups, slots, generator=gen,
@@ -627,19 +633,68 @@ def compare(name, got, want, tol) -> float:
     return worst
 
 
+# K2's cases against its plain version: the main path's calls and the
+# shapes the persistent design can get wrong
+PP_CASES = {
+    "main": {},
+    "compact Nd=40 copies=1": dict(n_groups=120, copies=1, nd=40),
+    "hj=V+1": dict(n_groups=2, copies=3, hj=17),
+    "masked destination": dict(n_groups=2, copies=3, masked_row=True),
+    "K=1": dict(n_groups=2, copies=3, k=1),
+    "odd batch B=3": dict(n_groups=3, copies=1),
+    # every slot of an atom is an edge: an item's 1,024 rows span 16 chunks
+    # and destinations straddle chunks
+    "dense": dict(n_groups=2, copies=3, cutoff=100.0),
+    # 4 tiles of 64, 41 and the last item count (140) not a multiple of the
+    # grid (132 SMs)
+    "Nd=233": dict(n_groups=7, copies=5, slots=240, nd=233),
+    # 16 destinations an item, a destination's rows up to a whole chunk
+    "K=64": dict(n_groups=2, copies=3, k=64, cutoff=6.0),
+    "S=72 V=8 hj=9": dict(n_groups=2, copies=3, s=72, v=8, hj=9),
+}
+# two calls on the same inputs give bit-equal sums (no atomics)
+PP_REPEAT = ("main", "dense", "K=64")
+# K2 bf16 at the sampling shape in its earlier, FMA-only design: the
+# wrapper call (the edge terms in plain PyTorch, then the kernel), as
+# `wrapper_ms` is timed
+PP_EARLIER_MS = 1.2326
+
+
+def pp_times(dev, dtype: str, extra: dict, calls: int, replays: int):
+    """(per-call ms of the kernel alone from CUDA-graph replay, bound in ms,
+    bound_by, bytes, operations, edge rows, ms of the whole wrapper call)
+    of K2 on `pp_case(dtype, **extra)`; the bound takes the bf16
+    tensor-core peak for bf16 and the fp32 FMA peak for fp32."""
+    from pharmaforge_tpu_torch.ops import pp_message as ppm
+    args, kw = pp_case(dev, dtype=dtype, **extra)
+    pre_s, planes, edge, chain = args
+    w = ppm.split_weights(chain, kw["scalar_size"], kw["rbf_dim"])
+    d = ppm._dims(pre_s, planes, edge, w, **kw)
+    with torch.no_grad():
+        saved = ppm.kernel_inputs(d, pre_s, planes, edge, w)
+    ms = graph_ms(lambda: ppm._launch_fwd(d, *saved[:6], saved[8]),
+                  calls=calls, replays=replays)
+    wrapper_ms = graph_ms(lambda: ppm.fused_message_agg(*args, **kw),
+                          calls=calls, replays=replays)
+    n_bytes, n_ops, n_rows = pp_bound(args, kw)
+    peak = PEAK_BF16_OPS if dtype == "bfloat16" else PEAK_FP32_OPS
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / peak
+    return (ms, max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", n_bytes, n_ops,
+            n_rows, wrapper_ms)
+
+
+def rates(ms: float, bound_ms: float, n_bytes: int, n_ops: int) -> str:
+    return (f"{n_ops / ms / 1e9:.2f} TFLOP/s, {n_bytes / ms / 1e9:.4f} TB/s, "
+            f"{100 * bound_ms / ms:.2f}% of the bound")
+
+
 def phase_pp(dev) -> dict:
     from pharmaforge_tpu_torch.ops import pp_message as ppm
-    cases = [("main", {}),
-             ("compact Nd=40 copies=1", dict(n_groups=120, copies=1, nd=40)),
-             ("hj=V+1", dict(n_groups=2, copies=3, hj=17)),
-             ("masked destination", dict(n_groups=2, copies=3,
-                                         masked_row=True)),
-             ("K=1", dict(n_groups=2, copies=3, k=1)),
-             ("odd batch B=3", dict(n_groups=3, copies=1))]
     errs = {}
     with torch.no_grad():
         for dtype in ("bfloat16", "float32"):
-            for name, extra in cases:
+            for name, extra in PP_CASES.items():
                 args, kw = pp_case(dev, dtype=dtype, **extra)
                 before = ppm.launches
                 got = ppm.fused_message_agg(*args, **kw)
@@ -652,41 +707,51 @@ def phase_pp(dev) -> dict:
                           "pp: a fully masked destination is not zero")
                 errs[f"{name} {dtype}"] = compare(f"{name} {dtype}", got,
                                                   want, PP_TOL[dtype])
+                if name in PP_REPEAT:
+                    again = ppm.fused_message_agg(*args, **kw)
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"pp {name} {dtype}: two calls differ")
 
         args, kw = pp_case(dev, dtype="bfloat16")
         eager_ms = cuda_ms(lambda: ppm.fused_message_agg(*args, **kw),
                            reps=20, warmup=2)
-        kernel_ms = graph_ms(lambda: ppm.fused_message_agg(*args, **kw),
-                             calls=20, replays=5)
         plain_ms = graph_ms(lambda: ppm.message_agg_reference(*args, **kw),
                             calls=2, replays=3)
-        args32, kw32 = pp_case(dev, dtype="float32")
-        fp32_ms = graph_ms(lambda: ppm.fused_message_agg(*args32, **kw32),
-                           calls=10, replays=3)
-    n_bytes, n_ops, n_rows = pp_bound(args, kw)
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_BF16_OPS
+        bf = pp_times(dev, "bfloat16", {}, calls=50, replays=10)
+        f32 = pp_times(dev, "float32", {}, calls=20, replays=5)
+        train = pp_times(dev, "float32", PPBWD_TRAIN, calls=20, replays=5)
     (b, p, s), (g, nd, k) = args[0].shape, args[2].mask.shape
     print(f"pp: {len(errs)} cases within tolerance of the plain version "
-          f"(fp32 {PP_TOL['float32']}, bf16 {PP_TOL['bfloat16']}); max abs "
-          f"err {json.dumps(errs)}; main shape B={b} (G={g} x "
-          f"{kw['copies']} copies) P={p} Nd={nd} K={k} S={s} "
-          f"V={kw['vector_size']} ({n_rows} of {b * nd * k} slots are "
-          f"edges), per call from CUDA-graph replay: "
-          f"kernel bf16 {kernel_ms:.4f} ms, fp32 {fp32_ms:.4f} ms, plain "
-          f"bf16 {plain_ms:.4f} ms; bound {max(t_bytes, t_ops) * 1e3:.6f} ms "
-          f"({n_bytes} B at 3.35 TB/s, {n_ops} ops at 989 TFLOP/s bf16; "
-          f"{n_ops / PEAK_FP32_OPS * 1e3:.4f} ms at 67 TFLOP/s fp32); "
-          f"kernel called eagerly back to back {eager_ms:.4f} ms",
-          flush=True)
+          f"(fp32 {PP_TOL['float32']}, bf16 {PP_TOL['bfloat16']}), two calls "
+          f"bit-equal in {list(PP_REPEAT)}; max abs err {json.dumps(errs)}; "
+          f"sampling shape B={b} (G={g} x {kw['copies']} copies) P={p} "
+          f"Nd={nd} K={k} S={s} V={kw['vector_size']} ({bf[5]} of "
+          f"{b * nd * k} slots are edges), per call from CUDA-graph replay "
+          f"(kernel alone; wrapper call with its edge terms): kernel bf16 "
+          f"{bf[0]:.4f} ms (wrapper {bf[6]:.4f} ms, earlier design "
+          f"{PP_EARLIER_MS} ms; "
+          f"bound {bf[1]:.6f} ms by {bf[2]}: {bf[3]} B at 3.35 TB/s, "
+          f"{bf[4]} ops at 989 TFLOP/s bf16; {rates(*bf[:2], *bf[3:5])}), "
+          f"fp32 {f32[0]:.4f} ms (wrapper {f32[6]:.4f} ms; "
+          f"bound {f32[1]:.6f} ms by {f32[2]}: {f32[3]} B, {f32[4]} ops at "
+          f"67 TFLOP/s fp32; {rates(*f32[:2], *f32[3:5])}), plain bf16 "
+          f"{plain_ms:.4f} ms; training shape B=32 P=Nd=256 fp32 "
+          f"({train[5]} edge rows) {train[0]:.4f} ms (wrapper {train[6]:.4f} "
+          f"ms; bound {train[1]:.6f} "
+          f"ms by {train[2]}: {train[3]} B, {train[4]} ops at 67 TFLOP/s; "
+          f"{rates(*train[:2], *train[3:5])}); kernel called eagerly back "
+          f"to back {eager_ms:.4f} ms", flush=True)
     return {"name": "pp_message", "route": "cuda",
             "source": "pharmaforge_tpu_torch/csrc/pp_message.cu",
             "replaces": "pharmaforge_tpu/ops/pallas/pp_message.py:386",
-            "max_abs_err": errs["main bfloat16"], "ms": kernel_ms,
-            "kernel_ms": kernel_ms, "fp32_ms": fp32_ms,
+            "max_abs_err": errs["main bfloat16"], "ms": bf[0],
+            "kernel_ms": bf[0], "wrapper_ms": bf[6],
+            "earlier_ms": PP_EARLIER_MS,
+            "fp32_ms": f32[0], "fp32_bound_ms": f32[1],
+            "fp32_bound_by": f32[2], "train_fp32_ms": train[0],
+            "train_fp32_bound_ms": train[1], "train_fp32_bound_by": train[2],
             "eager_ms": eager_ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "bound_ms": bf[1], "bound_by": bf[2], "library_ms": None}
 
 
 # ----------------------------------------------------------------- ppbwd

@@ -3,7 +3,9 @@
 Each `csrc/<name>.cu` exposes a plain C interface. It is compiled with
 `nvcc` for Hopper (`sm_90a`) into
 `build/pharmaforge_tpu_torch/<name>-<hash>.so` at the checkout's root,
-keyed on the source bytes and that kernel's flags, and loaded with
+keyed on the source bytes, the bytes of the `csrc/*.cuh` headers it
+includes (directly or through another header) and that kernel's flags,
+and loaded with
 `ctypes`. The first call in a fresh checkout builds; later calls reuse
 the library. A missing `nvcc` or a failed build raises.
 """
@@ -14,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -49,12 +52,31 @@ def nvcc_path() -> str:
                        "/usr/local/cuda); the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+\.cuh)"', re.MULTILINE)
+
+
+def local_headers(src: Path) -> list:
+    """The `csrc/*.cuh` headers that `src` includes, directly or through
+    another header, in the order first met."""
+    found, todo = [], [src]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop(0).read_bytes()):
+            path = CSRC_DIR / name.decode()
+            if path.exists() and path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
 def library_path(name: str) -> Path:
-    """Where `csrc/<name>.cu` builds to, keyed on its source and flags."""
+    """Where `csrc/<name>.cu` builds to, keyed on its source, the local
+    headers it includes and its flags."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(nvcc_flags(name)).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in local_headers(src):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(nvcc_flags(name)).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

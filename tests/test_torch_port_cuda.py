@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from pharmaforge_tpu_torch.ops import knn_select as ks
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -71,14 +72,7 @@ def test_kernel_refuses_bad_inputs(dev):
                       *args[1:], 5)
 
 
-PP_CASES = {
-    "main": {},
-    "compact Nd=40 copies=1": dict(n_groups=120, copies=1, nd=40),
-    "hj=V+1": dict(n_groups=2, copies=3, hj=17),
-    "masked destination": dict(n_groups=2, copies=3, masked_row=True),
-    "K=1": dict(n_groups=2, copies=3, k=1),
-    "odd batch B=3": dict(n_groups=3, copies=1),
-}
+PP_CASES = chip_smoke.PP_CASES
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -87,7 +81,6 @@ def test_pp_kernel_matches_plain(dev, case, dtype):
     """K2 against its plain version at chip_smoke.py's pp cases, within
     chip_smoke.PP_TOL (fp32 rtol 1e-5 / atol 1e-6; bf16 rtol 1e-2 /
     atol 1e-3, the reason beside it)."""
-    import chip_smoke
     from pharmaforge_tpu_torch.ops import pp_message as ppm
     args, kw = chip_smoke.pp_case(dev, dtype=dtype, **PP_CASES[case])
     before = ppm.launches
@@ -99,8 +92,21 @@ def test_pp_kernel_matches_plain(dev, case, dtype):
     chip_smoke.compare(case, got, want, chip_smoke.PP_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", chip_smoke.PP_REPEAT)
+def test_pp_kernel_is_deterministic(dev, case, dtype):
+    """Two K2 calls on the same inputs return bit-equal sums: each
+    destination's rows are added in k order, with no atomics."""
+    from pharmaforge_tpu_torch.ops import pp_message as ppm
+    args, kw = chip_smoke.pp_case(dev, dtype=dtype, **PP_CASES[case])
+    with torch.no_grad():
+        first = ppm.fused_message_agg(*args, **kw)
+        second = ppm.fused_message_agg(*args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def test_pp_kernel_refuses_bad_inputs(dev):
-    import chip_smoke
     from pharmaforge_tpu_torch.ops import pp_message as ppm
     args, kw = chip_smoke.pp_case(dev, dtype="float32", n_groups=2, copies=3)
     with torch.no_grad():
