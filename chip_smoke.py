@@ -27,15 +27,16 @@ Phases, one line each; any failure raises and the script exits non-zero:
                 samples/s; and 1 pocket x 8 samples on the CPU and the card
                 with the same injected noise, within 2e-3;
 5. pp        -- the fused pp-message kernel (K2) against its plain version
-                on the card: the sampling shape (B=120 = 4 pockets x 30
-                copies, P=Nd=230, K=16, S=128, V=16, 3 GVPs) in bf16 and
-                fp32, and edge cases (copies=1 with Nd=40, hidden width
-                V+1, a fully masked destination, K=1, an odd batch, every
-                slot an edge, Nd=233, K=64, widths 72/8/9), two calls
-                bit-equal; device times (graph replay) of the kernel in
-                bf16 and fp32 at the sampling shape and in fp32 at the
-                training shape, each beside its bound, of the plain
-                version, and the eager time;
+                on the card, in bf16 and fp32: the sampling shape (B=120 =
+                4 pockets x 30 copies, P=Nd=230, K=16, S=128, V=16, 3
+                GVPs), the compact tail (copies=1, Nd=40), the training
+                batch (B=32, P=Nd=192 and 256), and edge cases (hidden
+                width V+1, a fully masked destination, K=1, an odd batch,
+                every slot an edge, Nd=233, K=64, widths 72/8/9, 5 GVPs),
+                two calls bit-equal; device times (graph replay) of the
+                wrapper call and of the kernel alone in bf16 and fp32 at
+                the sampling shape and in fp32 at the training shape, each
+                beside its bound, of the plain version, and the eager time;
 6. fullscale -- the reference-size model (n_convs=4, T=1000, endpoint,
                 bf16 edge chains, same widths, random weights from a seed)
                 sampling 4 synthetic 230-atom pockets x 30 through
@@ -534,7 +535,7 @@ def pp_case(dev, *, dtype: str, n_groups: int = 4, copies: int = 30,
             atoms: int = 230, k: int = 16, nd=None, hj: int = 16,
             masked_row: bool = False, s: int = 128, v: int = 16,
             slots=None, dup: bool = False, table_dtype=None,
-            cutoff: float = 3.5):
+            cutoff: float = 3.5, n_gvps: int = 3):
     """One K2 call as the main path makes it: the pp edges of synthetic
     pockets at pocket-group level, random node tables in the compute
     dtype (or `table_dtype`), a message chain with seeded weights. `nd`
@@ -543,7 +544,7 @@ def pp_case(dev, *, dtype: str, n_groups: int = 4, copies: int = 30,
     (the training batch); `dup` makes one source atom occur twice in one
     destination's list and in a list of another tile. `cutoff` is the pp
     radius (3.5 A on the main path; a large one makes every slot of an
-    atom with K neighbours an edge)."""
+    atom with K neighbours an edge); `n_gvps` the message chain's depth."""
     from pharmaforge_tpu_torch.models.conv import message_specs
     from pharmaforge_tpu_torch.models.edges import (EdgeData,
                                                     GroupedEdgeData,
@@ -578,7 +579,7 @@ def pp_case(dev, *, dtype: str, n_groups: int = 4, copies: int = 30,
         ed.mask[:, 5, :2] = True
         ed.mask[:, ed.idx.shape[1] - 3, 0] = True
     edge = GroupedEdgeData(*ed, copies=copies) if copies > 1 else ed
-    specs = message_specs(3, v, s, 16)
+    specs = message_specs(n_gvps, v, s, 16)
     specs[1:] = [dict(sp, hidden_vectors=hj) for sp in specs[1:]]
     chain = reset_parameters_(GVPChain(specs),
                               torch.Generator().manual_seed(7)).to(dev)
@@ -633,11 +634,19 @@ def compare(name, got, want, tol) -> float:
     return worst
 
 
-# K2's cases against its plain version: the main path's calls and the
-# shapes the persistent design can get wrong
+# the training batch's pp call: 32 pockets of 230 atoms (164-174 after the
+# generator's thinning) in 256 slots (K3's training shape), and in the 192
+# slots to which the loader pads the synthetic training set
+PPBWD_TRAIN = dict(n_groups=32, copies=1, atoms=230, slots=256)
+PP_TRAIN_192 = dict(n_groups=32, copies=1, atoms=230, slots=192)
+# K2's cases against its plain version: the main path's calls (sampling,
+# compact tail, both training shapes) and the shapes the persistent design
+# can get wrong
 PP_CASES = {
     "main": {},
     "compact Nd=40 copies=1": dict(n_groups=120, copies=1, nd=40),
+    "train B=32 P=Nd=192": PP_TRAIN_192,
+    "train B=32 P=Nd=256": PPBWD_TRAIN,
     "hj=V+1": dict(n_groups=2, copies=3, hj=17),
     "masked destination": dict(n_groups=2, copies=3, masked_row=True),
     "K=1": dict(n_groups=2, copies=3, k=1),
@@ -651,20 +660,23 @@ PP_CASES = {
     # 16 destinations an item, a destination's rows up to a whole chunk
     "K=64": dict(n_groups=2, copies=3, k=64, cutoff=6.0),
     "S=72 V=8 hj=9": dict(n_groups=2, copies=3, s=72, v=8, hj=9),
+    # a deeper chain: bf16 weights past the shared memory stage per GVP
+    "5 GVPs": dict(n_groups=2, copies=3, n_gvps=5),
 }
 # two calls on the same inputs give bit-equal sums (no atomics)
-PP_REPEAT = ("main", "dense", "K=64")
-# K2 bf16 at the sampling shape in its earlier, FMA-only design: the
-# wrapper call (the edge terms in plain PyTorch, then the kernel), as
-# `wrapper_ms` is timed
+PP_REPEAT = ("main", "train B=32 P=Nd=192", "train B=32 P=Nd=256", "dense",
+             "K=64")
+# K2 bf16 at the sampling shape in its earlier, FMA-only design, timed as
+# `ms` is: the wrapper call (the edge terms in plain PyTorch, then the
+# kernel) by CUDA-graph replay
 PP_EARLIER_MS = 1.2326
 
 
 def pp_times(dev, dtype: str, extra: dict, calls: int, replays: int):
-    """(per-call ms of the kernel alone from CUDA-graph replay, bound in ms,
-    bound_by, bytes, operations, edge rows, ms of the whole wrapper call)
-    of K2 on `pp_case(dtype, **extra)`; the bound takes the bf16
-    tensor-core peak for bf16 and the fp32 FMA peak for fp32."""
+    """(per-call ms of the wrapper call from CUDA-graph replay, bound in
+    ms, bound_by, bytes, operations, edge rows, ms of the kernel alone) of
+    K2 on `pp_case(dtype, **extra)`; the bound takes the bf16 tensor-core
+    peak for bf16 and the fp32 FMA peak for fp32."""
     from pharmaforge_tpu_torch.ops import pp_message as ppm
     args, kw = pp_case(dev, dtype=dtype, **extra)
     pre_s, planes, edge, chain = args
@@ -672,21 +684,29 @@ def pp_times(dev, dtype: str, extra: dict, calls: int, replays: int):
     d = ppm._dims(pre_s, planes, edge, w, **kw)
     with torch.no_grad():
         saved = ppm.kernel_inputs(d, pre_s, planes, edge, w)
-    ms = graph_ms(lambda: ppm._launch_fwd(d, *saved[:6], saved[8]),
-                  calls=calls, replays=replays)
-    wrapper_ms = graph_ms(lambda: ppm.fused_message_agg(*args, **kw),
-                          calls=calls, replays=replays)
+    kernel_ms = graph_ms(lambda: ppm._launch_fwd(d, *saved[:6], saved[8]),
+                         calls=calls, replays=replays)
+    ms = graph_ms(lambda: ppm.fused_message_agg(*args, **kw), calls=calls,
+                  replays=replays)
     n_bytes, n_ops, n_rows = pp_bound(args, kw)
     peak = PEAK_BF16_OPS if dtype == "bfloat16" else PEAK_FP32_OPS
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / peak
     return (ms, max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", n_bytes, n_ops,
-            n_rows, wrapper_ms)
+            n_rows, kernel_ms)
 
 
-def rates(ms: float, bound_ms: float, n_bytes: int, n_ops: int) -> str:
-    return (f"{n_ops / ms / 1e9:.2f} TFLOP/s, {n_bytes / ms / 1e9:.4f} TB/s, "
-            f"{100 * bound_ms / ms:.2f}% of the bound")
+def rates(ms: float, bound_ms: float, n_bytes: int, n_ops: int,
+          kernel_ms: float = 0.0) -> str:
+    """Achieved rates and share of the bound of the call, and of the kernel
+    alone where `kernel_ms` is given."""
+    out = (f"{n_ops / ms / 1e9:.2f} TFLOP/s, {n_bytes / ms / 1e9:.4f} TB/s, "
+           f"{100 * bound_ms / ms:.2f}% of the bound")
+    if kernel_ms:
+        out += (f"; kernel alone {n_ops / kernel_ms / 1e9:.2f} TFLOP/s, "
+                f"{n_bytes / kernel_ms / 1e9:.4f} TB/s, "
+                f"{100 * bound_ms / kernel_ms:.2f}%")
+    return out
 
 
 def phase_pp(dev) -> dict:
@@ -727,28 +747,29 @@ def phase_pp(dev) -> dict:
           f"sampling shape B={b} (G={g} x {kw['copies']} copies) P={p} "
           f"Nd={nd} K={k} S={s} V={kw['vector_size']} ({bf[5]} of "
           f"{b * nd * k} slots are edges), per call from CUDA-graph replay "
-          f"(kernel alone; wrapper call with its edge terms): kernel bf16 "
-          f"{bf[0]:.4f} ms (wrapper {bf[6]:.4f} ms, earlier design "
-          f"{PP_EARLIER_MS} ms; "
+          f"(the wrapper call with its edge terms in plain PyTorch, as the "
+          f"earlier design was timed; the kernel alone): bf16 {bf[0]:.4f} ms "
+          f"(kernel alone {bf[6]:.4f} ms; earlier design {PP_EARLIER_MS} ms; "
           f"bound {bf[1]:.6f} ms by {bf[2]}: {bf[3]} B at 3.35 TB/s, "
-          f"{bf[4]} ops at 989 TFLOP/s bf16; {rates(*bf[:2], *bf[3:5])}), "
-          f"fp32 {f32[0]:.4f} ms (wrapper {f32[6]:.4f} ms; "
+          f"{bf[4]} ops at 989 TFLOP/s bf16; {rates(*bf[:2], *bf[3:5], bf[6])}), "
+          f"fp32 {f32[0]:.4f} ms (kernel alone {f32[6]:.4f} ms; "
           f"bound {f32[1]:.6f} ms by {f32[2]}: {f32[3]} B, {f32[4]} ops at "
-          f"67 TFLOP/s fp32; {rates(*f32[:2], *f32[3:5])}), plain bf16 "
+          f"67 TFLOP/s fp32; {rates(*f32[:2], *f32[3:5], f32[6])}), plain bf16 "
           f"{plain_ms:.4f} ms; training shape B=32 P=Nd=256 fp32 "
-          f"({train[5]} edge rows) {train[0]:.4f} ms (wrapper {train[6]:.4f} "
-          f"ms; bound {train[1]:.6f} "
+          f"({train[5]} edge rows) {train[0]:.4f} ms (kernel alone "
+          f"{train[6]:.4f} ms; bound {train[1]:.6f} "
           f"ms by {train[2]}: {train[3]} B, {train[4]} ops at 67 TFLOP/s; "
-          f"{rates(*train[:2], *train[3:5])}); kernel called eagerly back "
+          f"{rates(*train[:2], *train[3:5], train[6])}); wrapper called eagerly back "
           f"to back {eager_ms:.4f} ms", flush=True)
     return {"name": "pp_message", "route": "cuda",
             "source": "pharmaforge_tpu_torch/csrc/pp_message.cu",
             "replaces": "pharmaforge_tpu/ops/pallas/pp_message.py:386",
             "max_abs_err": errs["main bfloat16"], "ms": bf[0],
-            "kernel_ms": bf[0], "wrapper_ms": bf[6],
+            "kernel_ms": bf[0], "kernel_alone_ms": bf[6],
             "earlier_ms": PP_EARLIER_MS,
-            "fp32_ms": f32[0], "fp32_bound_ms": f32[1],
-            "fp32_bound_by": f32[2], "train_fp32_ms": train[0],
+            "fp32_ms": f32[0], "fp32_kernel_alone_ms": f32[6],
+            "fp32_bound_ms": f32[1], "fp32_bound_by": f32[2],
+            "train_fp32_ms": train[0], "train_fp32_kernel_alone_ms": train[6],
             "train_fp32_bound_ms": train[1], "train_fp32_bound_by": train[2],
             "eager_ms": eager_ms, "plain_ms": plain_ms,
             "bound_ms": bf[1], "bound_by": bf[2], "library_ms": None}
@@ -772,8 +793,6 @@ def phase_pp(dev) -> dict:
 # deviation in the same case.
 PPBWD_TOL = {"float32": dict(rtol=2e-4, atol=2e-5), "bfloat16": 0.25}
 PPBWD_BF16_FLOOR = 1.5
-# the training batch's pp call: 32 pockets of 230 atoms in 256 slots
-PPBWD_TRAIN = dict(n_groups=32, copies=1, atoms=230, slots=256)
 PPBWD_CASES = {
     "train": PPBWD_TRAIN,
     "copies=3": dict(n_groups=2, copies=3),

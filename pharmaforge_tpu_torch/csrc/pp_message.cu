@@ -28,8 +28,7 @@
 // 128, depth 16 to 144), each feeding an epilogue that the next reads, so
 // what costs time is latency: barriers, per-block fixed work, the
 // epilogues' transcendentals and the on-chip traffic between stages, not
-// the products' peak rate (scripts/port_k2_phases.py measures each phase).
-// The design:
+// the products' peak rate. The design:
 //
 // 1. Persistent blocks. The grid is blocks-per-SM x SMs (both queried once
 //    and cached), 512 threads a block. Each block takes the work items
@@ -38,7 +37,9 @@
 //    no global work counter. In bf16 the whole chain's weights (97 KB) are
 //    staged into shared memory once per block and stay resident; in fp32
 //    they are 187 KB and do not fit beside the activations, so each GVP's
-//    weights are staged once per 64-row chunk (not once per product).
+//    weights are staged once per 64-row chunk (not once per product). A
+//    bf16 chain whose resident weights would not fit (5 or more GVPs at
+//    the sampling widths: each adds 42 KB) is staged per GVP the same way.
 // 2. Full chunks. A work item is min(64, 256 / K) destinations of one batch
 //    row; a block prefix sum compacts its valid slots in slot order into a
 //    ring of rows, so each destination's rows
@@ -57,7 +58,7 @@
 //    its epilogue (rounding, bias, SiLU, sigmoid, gate x vector) applied to
 //    the accumulator fragments, loads first. The vector products take
 //    plane x row as M (3 x 64 = 192 rows). The tensor cores sum in another
-//    order than the plain version's GEMM; a sum within PP_TIE_ULPS of a
+//    order than the plain version's GEMM; a sum within kTieUlps of a
 //    bf16 rounding midpoint is summed again in k order (near_tie), which
 //    keeps the bf16 outputs within a third of the tolerance. Not
 //    `wgmma`/TMA: with products this small and an epilogue after each, a
@@ -76,7 +77,8 @@
 // Budget at the sampling widths (S=128, V=16, H0=17, Hj=16, 3 GVPs), 512
 // threads, one block per SM: bf16 159,088 bytes of dynamic shared memory
 // (weights 97,280; activations 50,176; ring, runs, carries and biases
-// 11,632), fp32 178,544 (one GVP's weights 83,968; activations 82,944).
+// 11,632), fp32 178,544 (one GVP's weights 83,968; activations 82,944);
+// both under the 232,448 bytes a Hopper block may opt into (kMaxSmem).
 // Registers and spills: the `-Xptxas -v` report in
 // build/pharmaforge_tpu_torch/pp_message-<hash>.log, quoted in PERF.md.
 
@@ -96,6 +98,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kDests = 64;     // the most destinations a work item holds
 constexpr int kItemSlots = 256;  // the most slots a work item scans
 constexpr int kRing = 512;     // compacted rows a block holds: < kRows + kItemSlots
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use (Hopper)
 static_assert(kRows == 64, "a chunk's run scan takes two rows a lane");
 
 __host__ __device__ inline int rup(int n, int m) { return (n + m - 1) / m * m; }
@@ -120,44 +123,16 @@ template <typename T> __device__ __forceinline__ float rnd(float x) {
 // correctly rounded reciprocal, the same value as the division 1.0f / y
 __device__ __forceinline__ float sigmoid_f(float x) { return __frcp_rn(1.0f + expf(-x)); }
 
-// Optional instrumentation (scripts/port_k2_phases.py). -DPP_PHASE_CLOCKS:
-// thread 0 of each block adds the clock64() cycles of each phase, up to the
-// point that ends it, and the kernel writes them to pp_phase_clock.
-// -DPP_TIE_HISTOGRAM: every bf16 product element is also summed in k order;
-// pp_tie_hist counts, by how far the tensor cores' sum lies from the bf16
-// rounding midpoint (fp32 ulps, powers of two), the elements whose two sums
-// round to different bf16 values, and (from bucket 32) all elements.
-#ifdef PP_PHASE_CLOCKS
-constexpr int kPhases = 20, kClockBlocks = 1024;
-__device__ unsigned long long pp_phase_clock[kClockBlocks * kPhases];
-__shared__ long long pp_clk[kPhases + 1];
-#define PHASE(p)                            \
-  do {                                      \
-    if (threadIdx.x == 0) {                 \
-      const long long now = clock64();      \
-      pp_clk[p] += now - pp_clk[kPhases];   \
-      pp_clk[kPhases] = now;                \
-    }                                       \
-  } while (0)
-#else
-#define PHASE(p) \
-  do {           \
-  } while (0)
-#endif
-#ifdef PP_TIE_HISTOGRAM
-__device__ unsigned long long pp_tie_hist[40];
-#endif
-
 // The tensor cores add a product's terms in another order (and with other
 // intermediate rounding) than the plain version's fp32 GEMM, which sums
 // sequentially in k. Where such a sum lies within kTieUlps fp32 ulps of a
 // bf16 rounding midpoint the two could round to different bf16 neighbours,
 // so that element is summed again on the FMA units in k order. About
-// 2 * kTieUlps / 65536 of the elements take this path.
-#ifndef PP_TIE_ULPS
-#define PP_TIE_ULPS 16
-#endif
-constexpr int kTieUlps = PP_TIE_ULPS;
+// 2 * kTieUlps / 65536 of the elements take this path. With 16 ulps the
+// sampling shape's and the compact tail's bf16 errors are 0.35 and 0.05 of
+// PP_TOL (8 ulps: 0.35 and 0.18; none: 0.90 and 1.40, beyond it), for
+// about a fifth of the bf16 time (PERF.md).
+constexpr int kTieUlps = 16;
 
 __device__ __forceinline__ bool near_tie(float x) {
   const int low = static_cast<int>(__float_as_uint(x) & 0xffffu);
@@ -274,6 +249,7 @@ struct Smem {
   int ld_s, ld_h, ld_v;                         // row strides (elements)
   int fs, sh, gt, vh, vc, act_end;              // activations (T)
   int ml, tr, el, dr, ds, ws, rs, cdr, cs, cv, bias, w, total;
+  int resident;  // every GVP's weights staged once per block (else per chunk)
 };
 
 __host__ __device__ inline int take(int& o, size_t bytes) {
@@ -306,10 +282,13 @@ template <typename T> __host__ __device__ inline Smem smem_layout(const Dims& d)
   L.cs = take(o, static_cast<size_t>(2) * d.S * 4);             // output row,
   L.cv = take(o, static_cast<size_t>(2) * 3 * d.V * 4);         // scalar, vector
   L.bias = take(o, static_cast<size_t>(bias_j(d, d.n_layers)) * 4);
+  // bf16 keeps the whole chain resident where it fits; fp32 (and a bf16
+  // chain too deep to fit) holds one GVP's weights at a time
   const int w0 = staged0<T>(d).size, wj = d.n_layers > 1 ? stagedj<T>(d).size : 0;
-  const size_t welems = sizeof(T) == 2 ? static_cast<size_t>(w0) + (d.n_layers - 1) * wj
-                                       : static_cast<size_t>(w0 > wj ? w0 : wj);
-  L.w = take(o, welems * es);
+  const size_t chain = static_cast<size_t>(w0) + static_cast<size_t>(d.n_layers - 1) * wj;
+  L.w = o;
+  L.resident = sizeof(T) == 2 && L.w + rup16(chain * es) <= static_cast<size_t>(kMaxSmem);
+  take(o, (L.resident ? chain : static_cast<size_t>(w0 > wj ? w0 : wj)) * es);
   L.total = o;
   return L;
 }
@@ -421,24 +400,8 @@ __device__ __forceinline__ void fix_ties(float (&acc)[MT][NT][4], const bf16* A,
       for (int e = 0; e < 4; ++e) {
         const int row = m0 + mi * 16 + (lane >> 2) + 8 * (e >> 1);
         const int col = (n0 + ni) * 8 + 2 * (lane & 3) + (e & 1);
-#ifdef PP_TIE_HISTOGRAM
-        if (col < n) {
-          const float ex = exact_dot(A, lda, row, W, kt, col);
-          const uint32_t tb = __float_as_uint(acc[mi][ni][e]);
-          const int dist = abs(static_cast<int>(tb & 0xffffu) - 0x8000);
-          if (__bfloat16_as_ushort(__float2bfloat16_rn(acc[mi][ni][e])) !=
-              __bfloat16_as_ushort(__float2bfloat16_rn(ex)))
-            atomicAdd(&pp_tie_hist[dist == 0 ? 0 : 32 - __clz(dist)], 1ull);
-          atomicAdd(&pp_tie_hist[32], 1ull);
-          if (near_tie(acc[mi][ni][e])) {
-            atomicAdd(&pp_tie_hist[33], 1ull);
-            acc[mi][ni][e] = ex;
-          }
-        }
-#else
         if (col < n && near_tie(acc[mi][ni][e]))
           acc[mi][ni][e] = exact_dot(A, lda, row, W, kt, col);
-#endif
       }
 }
 
@@ -605,13 +568,10 @@ __device__ void feats_products(const bf16* FS, int lds, const bf16* SH, int ldh,
     const uint2* w2 = reinterpret_cast<const uint2*>(W1sh);
     mma_tile<1, 4>(a1, FS + m0 * lds, lds, w1, (S + 15) >> 4, n0, nt);
     mma_tile<1, 4>(a2, SH + m0 * ldh, ldh, w2, (Hj + 15) >> 4, n0, nt);
-    PHASE(15);
     fix_ties<1, 4>(a1, FS, lds, m0, w1, S, n0, S);
     fix_ties<1, 4>(a2, SH, ldh, m0, w2, Hj, n0, S);
-    PHASE(16);
   }
   __syncthreads();
-  PHASE(17);
   if (!on) return;
   const int lane = threadIdx.x & 31;
   float x[4][4];
@@ -631,7 +591,6 @@ __device__ void feats_products(const bf16* FS, int lds, const bf16* SH, int ldh,
       const int col = (n0 + ni) * 8 + 2 * (lane & 3) + (e & 1);
       if (col < S) epi.out(row, col, a1[0][ni][e], a2[0][ni][e], x[ni][e]);
     }
-  PHASE(18);
 }
 
 template <class Epi2>
@@ -772,14 +731,15 @@ __device__ void gather(T* FS, T* VH, const Smem& L, const T* __restrict__ tab_s,
   }
 }
 
-template <typename T>
+// kResident: every GVP's weights are staged once per block (bf16 chains
+// that fit); else each GVP's once per chunk.
+template <typename T, bool kResident>
 __global__ void __launch_bounds__(kThreads, 1)
 pp_message_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
                   const int* __restrict__ idx, const float* __restrict__ mask,
                   const T* __restrict__ rterm, const T* __restrict__ dirterm,
                   const T* __restrict__ wts, Dims d, Smem L, float* __restrict__ s_out,
                   float* __restrict__ v_out) {
-  constexpr bool kResident = sizeof(T) == 2;  // bf16: every GVP's weights stay
   extern __shared__ float4 smem4[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(smem4);
   T* FS = reinterpret_cast<T*>(sm + L.fs);
@@ -804,12 +764,6 @@ pp_message_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
   const int lds = L.ld_s, ldh = L.ld_h, ldv = L.ld_v;
   const int tid = threadIdx.x;
   const int es = sizeof(T);
-#ifdef PP_PHASE_CLOCKS
-  if (tid == 0) {
-    for (int p = 0; p < kPhases; ++p) pp_clk[p] = 0;
-    pp_clk[kPhases] = clock64();
-  }
-#endif
   const Staged0 s0 = staged0<T>(d);
   const StagedJ sj = stagedj<T>(d);
   // staged weights of GVP `layer`
@@ -819,7 +773,7 @@ pp_message_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
 
   // ---- once per block: zero the activations (padding channels stay zero,
   // so products over padded depths read finite values), stage the biases
-  // and, in bf16, every GVP's weights
+  // and, where resident, every GVP's weights
   for (int i = tid; i < L.act_end / 16; i += kThreads) smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   {
     const Layer0 o = layer0_offsets(d);
@@ -835,7 +789,6 @@ pp_message_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
     for (int j = 0; j < d.n_layers; ++j) stage_layer(wts, d, j, wl(j));
   if (tid == 0) CDR[0] = -1;  // no sums carried into the first chunk
   __syncthreads();
-  PHASE(0);
 
   // output vectors: gate x (hidden vectors @ Wu), rows plane * 64 + r
   const auto gated = epilogue(
@@ -894,7 +847,6 @@ pp_message_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
       tail += compact(next, tail);
       next += gridDim.x;
     }
-    PHASE(1);
     const int avail = tail - head;
     if (avail == 0) break;
     const int nr = min(kRows, avail);
@@ -918,14 +870,12 @@ pp_message_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
       }
     }
     __syncthreads();
-    PHASE(2);
 
     // ---- message GVP 0 -----------------------------------------------------
     {
       const unsigned char* W = wl(0);
       channel_norms<T>(VH, SH, ldh, H0);
       __syncthreads();
-      PHASE(3);
       gemm(SH, ldh, kRows, W + es * s0.w1sh, H0, S,
            epilogue([&](int r, int c) { return to_f(FS[r * lds + c]); },
                     [&](int r, int c, float acc, float x) {
@@ -933,17 +883,14 @@ pp_message_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
                       FS[r * lds + c] = from_f<T>(z * sigmoid_f(z));
                     }));
       __syncthreads();
-      PHASE(4);
       gemm(FS, lds, kRows, W + es * s0.wg, S, V,
            epilogue([&](int r, int c) { return BIAS[c]; },
                     [&](int r, int c, float acc, float x) {
                       GT[r * ldv + c] = from_f<T>(sigmoid_f(rnd<T>(rnd<T>(acc) + x)));
                     }));
       __syncthreads();
-      PHASE(5);
       gemm(VH, ldh, 3 * kRows, W + es * s0.wu, H0, V, gated);
       __syncthreads();
-      PHASE(6);
     }
 
     // ---- message GVPs 1 .. n-1 ---------------------------------------------
@@ -951,7 +898,6 @@ pp_message_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
       if (!kResident) {
         stage_layer(wts, d, layer, WB);
         __syncthreads();
-        PHASE(7);
       }
       const unsigned char* W = wl(layer);
       const float* bj = BIAS + bias_j(d, layer);
@@ -959,10 +905,8 @@ pp_message_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
            epilogue([&](int r, int c) { return 0.0f; },
                     [&](int r, int c, float acc, float) { VH[r * ldh + c] = from_f<T>(acc); }));
       __syncthreads();
-      PHASE(8);
       channel_norms<T>(VH, SH, ldh, Hj);
       __syncthreads();
-      PHASE(9);
       feats_products(FS, lds, SH, ldh, W + es * sj.w1f, W + es * sj.w1sh, S, Hj,
                      epilogue([&](int r, int c) { return bj[c]; },
                               [&](int r, int c, float a1, float a2, float x) {
@@ -970,17 +914,14 @@ pp_message_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
                                 FS[r * lds + c] = from_f<T>(z * sigmoid_f(z));
                               }));
       __syncthreads();
-      PHASE(10);
       gemm(FS, lds, kRows, W + es * sj.wg, S, V,
            epilogue([&](int r, int c) { return bj[rup(S, 4) + c]; },
                     [&](int r, int c, float acc, float x) {
                       GT[r * ldv + c] = from_f<T>(sigmoid_f(rnd<T>(rnd<T>(acc) + x)));
                     }));
       __syncthreads();
-      PHASE(11);
       gemm(VH, ldh, 3 * kRows, W + es * sj.wu, Hj, V, gated);
       __syncthreads();
-      PHASE(12);
     }
 
     // ---- masked sums: a destination's rows are contiguous; the thread of
@@ -1023,12 +964,7 @@ pp_message_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
     if (tid == 0) CDR[par ^ 1] = cont ? last : -1;
     head += nr;
     __syncthreads();
-    PHASE(13);
   }
-#ifdef PP_PHASE_CLOCKS
-  if (threadIdx.x == 0 && blockIdx.x < kClockBlocks)
-    for (int p = 0; p < kPhases; ++p) pp_phase_clock[blockIdx.x * kPhases + p] = pp_clk[p];
-#endif
 }
 
 Dims make_dims(int B, int P, int copies, int Nd, int K, int S, int V, int H0, int Hj,
@@ -1055,21 +991,24 @@ template <typename T>
 int launch(const void* tab_s, const void* tab_v, const int* idx, const float* mask,
            const void* rterm, const void* dirterm, const void* wts, Dims d, float* s_out,
            float* v_out, cudaStream_t stream) {
-  // the kernel's shared-memory ceiling, blocks per SM and the SM count are
-  // set or queried once (again only for a larger shape or another device),
-  // so a launch inside a CUDA-graph capture makes no attribute call
-  static int configured = 0, per_sm = 1;
+  // each kernel's shared-memory ceiling, blocks per SM and the SM count
+  // are set or queried once (again only for a larger shape or another
+  // device), so a launch inside a CUDA-graph capture makes no attribute call
+  static int configured[2] = {0, 0}, per_sm[2] = {1, 1};
   static int sms[64] = {0};
   const Smem L = smem_layout<T>(d);
-  if (L.total > configured) {
-    cudaError_t e = cudaFuncSetAttribute(pp_message_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  const int r = L.resident;
+  auto kern = pp_message_kernel<T, false>;
+  if constexpr (sizeof(T) == 2)
+    if (r) kern = pp_message_kernel<T, true>;
+  if (L.total > configured[r]) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
     if (e != cudaSuccess) return static_cast<int>(e);
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pp_message_kernel<T>, kThreads,
-                                                      L.total);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[r], kern, kThreads, L.total);
     if (e != cudaSuccess) return static_cast<int>(e);
-    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    configured = L.total;
+    if (per_sm[r] < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    configured[r] = L.total;
   }
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -1082,8 +1021,9 @@ int launch(const void* tab_s, const void* tab_v, const int* idx, const float* ma
   constexpr int q = 16 / sizeof(T);
   d.vec = d.S % q == 0 &&
           ((reinterpret_cast<uintptr_t>(tab_s) | reinterpret_cast<uintptr_t>(rterm)) & 15) == 0;
-  const int grid = d.items < per_sm * sms[dev] ? d.items : per_sm * sms[dev];
-  pp_message_kernel<T><<<grid, kThreads, L.total, stream>>>(
+  const int slots = per_sm[r] * sms[dev];
+  const int grid = d.items < slots ? d.items : slots;
+  kern<<<grid, kThreads, L.total, stream>>>(
       static_cast<const T*>(tab_s), static_cast<const T*>(tab_v), idx, mask,
       static_cast<const T*>(rterm), static_cast<const T*>(dirterm), static_cast<const T*>(wts), d,
       L, s_out, v_out);
@@ -1098,29 +1038,13 @@ extern "C" int pp_message_weights_size(int S, int V, int H0, int Hj, int n_layer
   return layer0_size(d) + (n_layers - 1) * layerj_size(d);
 }
 
-// Dynamic shared memory of one block, in bytes: the larger of the bf16 and
-// fp32 kernels' needs.
-extern "C" size_t pp_message_smem_bytes(int S, int V, int H0, int Hj, int n_layers) {
+// Dynamic shared memory of one block of the bf16 (bf16 != 0) or fp32
+// kernel, in bytes.
+extern "C" size_t pp_message_smem_bytes(int bf16, int S, int V, int H0, int Hj, int n_layers) {
   const Dims d = make_dims(1, 1, 1, 1, 1, S, V, H0, Hj, n_layers);
-  const int a = smem_layout<bf16>(d).total, b = smem_layout<float>(d).total;
-  return static_cast<size_t>(a > b ? a : b);
+  return static_cast<size_t>(bf16 ? smem_layout<__nv_bfloat16>(d).total
+                                  : smem_layout<float>(d).total);
 }
-
-#ifdef PP_PHASE_CLOCKS
-// The last launch's cycles per phase and block ([1024][20]).
-extern "C" int pp_message_phase_clock(unsigned long long* out) {
-  return static_cast<int>(cudaMemcpyFromSymbol(out, pp_phase_clock, sizeof(pp_phase_clock)));
-}
-#endif
-#ifdef PP_TIE_HISTOGRAM
-// Copies the counts since the last call to `out` (40 entries) and zeroes them.
-extern "C" int pp_message_tie_hist(unsigned long long* out) {
-  static const unsigned long long zero[40] = {};
-  cudaError_t e = cudaMemcpyFromSymbol(out, pp_tie_hist, sizeof(zero));
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(pp_tie_hist, zero, sizeof(zero));
-  return static_cast<int>(e);
-}
-#endif
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
 // bf16 != 0 selects __nv_bfloat16 tables, terms and weights (else float).

@@ -192,9 +192,9 @@ def _launcher():
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                    + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
-    for name in ("pp_message_weights_size", "pp_message_smem_bytes"):
-        getattr(lib, name).argtypes = [ctypes.c_int] * 5
+    lib.pp_message_weights_size.argtypes = [ctypes.c_int] * 5
     lib.pp_message_weights_size.restype = ctypes.c_int
+    lib.pp_message_smem_bytes.argtypes = [ctypes.c_int] * 6
     lib.pp_message_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -280,7 +280,8 @@ def _launch_fwd(d: _Dims, tab_s, tab_v, idx, mask, rterm, dirterm,
                 packed) -> Tensors:
     """K2 on contiguous kernel inputs: (s_sum [B,Nd,S], v_sum [B,Nd,V,3])."""
     lib = _launcher()
-    _check(lib.pp_message_smem_bytes(d.s, d.v, d.h0, d.hj, d.n_layers)
+    bf16 = int(d.dt == torch.bfloat16)
+    _check(lib.pp_message_smem_bytes(bf16, d.s, d.v, d.h0, d.hj, d.n_layers)
            <= _MAX_SMEM, "the widths need more shared memory than a block "
                          "has")
     _check(packed.numel() == lib.pp_message_weights_size(
@@ -293,7 +294,7 @@ def _launch_fwd(d: _Dims, tab_s, tab_v, idx, mask, rterm, dirterm,
         return s_sum, v_sum
     with torch.cuda.device(dev):
         err = lib.pp_message_launch(
-            int(d.dt == torch.bfloat16), tab_s.data_ptr(), tab_v.data_ptr(),
+            bf16, tab_s.data_ptr(), tab_v.data_ptr(),
             idx.data_ptr(), mask.data_ptr(), rterm.data_ptr(),
             dirterm.data_ptr(), packed.data_ptr(), d.b, d.p, d.g, d.copies,
             d.nd, d.k, d.s, d.v, d.h0, d.hj, d.n_layers, s_sum.data_ptr(),

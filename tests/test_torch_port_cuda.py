@@ -106,6 +106,19 @@ def test_pp_kernel_is_deterministic(dev, case, dtype):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+@pytest.mark.parametrize("n_gvps", [3, 4, 5, 6])
+def test_pp_shared_memory_fits_deeper_chains(dev, n_gvps):
+    """K2's shared memory per block, for each dtype, stays within a Hopper
+    block's at the sampling widths for chains of 3-6 GVPs: bf16 keeps the
+    chain's weights resident while they fit and stages them per GVP, as
+    fp32 does, beyond."""
+    from pharmaforge_tpu_torch.ops import pp_message as ppm
+    lib = ppm._launcher()
+    bf16, fp32 = (lib.pp_message_smem_bytes(t, 128, 16, 17, 16, n_gvps)
+                  for t in (1, 0))
+    assert bf16 <= ppm._MAX_SMEM and fp32 <= ppm._MAX_SMEM
+
+
 def test_pp_kernel_refuses_bad_inputs(dev):
     from pharmaforge_tpu_torch.ops import pp_message as ppm
     args, kw = chip_smoke.pp_case(dev, dtype="float32", n_groups=2, copies=3)

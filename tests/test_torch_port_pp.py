@@ -170,6 +170,29 @@ def test_plain_matches_jax_twin_and_interpreted_kernel(rng, dtype, copies,
         allclose(g_, w_k, **kernel_tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_jax_twin_for_a_five_gvp_chain(rng, dtype):
+    """A deeper message chain (n_message_gvps=5, whose bf16 weights K2
+    stages per GVP on the card) against the JAX twin and the interpreted
+    JAX kernel, tolerances as above."""
+    c = k2_case(rng, copies=3, n_gvps=5)
+    kw = kw_of(c, dtype)
+    j_pre, j_planes, j_edge, j_layers = jax_side(c)
+    want_twin = jppm.message_agg_reference(j_pre, j_planes, j_edge,
+                                           j_layers, copies=3, **kw)
+    want_kernel = jppm.fused_message_agg(j_pre, j_planes, j_edge, j_layers,
+                                         copies=3, interpret=True, **kw)
+    gvps = port_gvps(c)
+    assert len(ppm.split_weights(gvps, c["s"], c["r"])) == 7 * 5
+    got = ppm.message_agg_reference(
+        t(c["pre_s"]), [t(q) for q in c["planes"]], port_edge(c), gvps,
+        copies=3, **kw)
+    kernel_tol = TOL[dtype] if dtype == "float32" else JAX_BF16
+    for g_, w_t, w_k in zip(got, want_twin, want_kernel):
+        allclose(g_, w_t, **TOL[dtype])
+        allclose(g_, w_k, **kernel_tol)
+
+
 def test_wrapper_on_cpu_is_the_plain_version_grouped_equals_expanded(rng):
     c = k2_case(rng, copies=3)
     gvps, kw = port_gvps(c), kw_of(c, "float32")
