@@ -801,6 +801,8 @@ PPBWD_CASES = {
     "repeated source": dict(n_groups=2, copies=1, dup=True),
     "K=1": dict(n_groups=2, copies=3, k=1),
     "odd batch B=3": dict(n_groups=3, copies=1),
+    # a deeper chain: its stored stages take the 16-row chunks
+    "5 GVPs": dict(n_groups=2, copies=3, n_gvps=5),
 }
 
 
@@ -923,6 +925,13 @@ def phase_ppbwd(dev, cases=None) -> dict:
                 errs[f"{name} plain fp32 / tol"] = fp32_over(
                     ppbwd_grads(args, kw, False, cot), want)
                 errs[f"{name} K3 fp32 / tol"] = fp32_over(got, want)
+                if extra is PPBWD_TRAIN:
+                    # the weight gradients are sums in a fixed order
+                    again = ppbwd_grads(args, kw, True, cot)
+                    check(all(torch.equal(a, b)
+                              for a, b in zip(got[4:], again[4:])),
+                          "ppbwd train fp32: two calls gave different "
+                          "weight gradients")
             else:
                 floor = bf16_rel(ppbwd_grads(args, kw, False, cot), want)
                 bound = max(PPBWD_TOL["bfloat16"], PPBWD_BF16_FLOOR * floor)

@@ -57,11 +57,15 @@
 
 namespace {
 
-constexpr int kR = 32;                // edge rows per chunk
 constexpr int kThreads = 256;         // also the most slots a tile holds
 constexpr int kDests = 64;            // the most destinations a tile holds
-constexpr int kLd = kR + 4;           // row stride of [channel][row] columns
-constexpr int kLd3 = 3 * kR + 4;      // same for the 3-plane vector columns
+constexpr int kMaxSmem = 232448;      // dynamic shared memory a block may use (Hopper)
+
+// Edge rows per chunk, kR, is a template parameter: 32, or 16 for chains
+// whose stored stages do not fit at 32 (rows_for). Row strides of the
+// [channel][row] columns and of the 3-plane vector columns:
+__host__ __device__ constexpr int ld1(int kR) { return kR + 4; }
+__host__ __device__ constexpr int ld3(int kR) { return 3 * kR + 4; }
 
 __host__ __device__ inline int pad8(int n) { return (n + 7) / 8 * 8; }
 
@@ -204,6 +208,7 @@ __device__ __forceinline__ void dot_t(const float* A, int lda, int nx, const flo
 }
 
 // gw[y] += sum_{r < kR} B[y * ldb + r] (a bias gradient).
+template <int kR>
 __device__ __forceinline__ void colsum(const float* B, int ldb, int ny, double* gw) {
   for (int y = threadIdx.x; y < ny; y += kThreads) {
     float acc = 0.0f;
@@ -213,8 +218,9 @@ __device__ __forceinline__ void colsum(const float* B, int ldb, int ny, double* 
 }
 
 // SH[h][r] = T(|VH[h][plane c][r]|) over the three planes, clamped at 1e-8.
-template <typename T>
+template <typename T, int kR>
 __device__ void channel_norms(const float* VH, float* SH, int h) {
+  constexpr int kLd = ld1(kR), kLd3 = ld3(kR);
   for (int i = threadIdx.x; i < h * kR; i += kThreads) {
     const int c = i / kR, r = i - c * kR;
     const float* v = VH + c * kLd3 + r;
@@ -261,22 +267,29 @@ struct Smem {
 
 __host__ __device__ inline int hmax(const Dims& d) { return d.H0 > d.Hj ? d.H0 : d.Hj; }
 
-__host__ __device__ inline size_t layer_floats(const Dims& d) {
-  const int Hm = hmax(d);
+__host__ __device__ inline size_t layer_floats(const Dims& d, int kR) {
+  const int Hm = hmax(d), kLd = ld1(kR), kLd3 = ld3(kR);
   return static_cast<size_t>(Hm) * kLd3 + static_cast<size_t>(d.S) * kLd +
          static_cast<size_t>(d.V) * kLd + static_cast<size_t>(d.V) * kLd3;
 }
 
-__host__ __device__ inline size_t smem_floats(const Dims& d) {
-  const int Hm = hmax(d);
-  return d.n_layers * layer_floats(d) + 3 * static_cast<size_t>(d.S) * kLd +
+__host__ __device__ inline size_t smem_floats(const Dims& d, int kR) {
+  const int Hm = hmax(d), kLd = ld1(kR), kLd3 = ld3(kR);
+  return d.n_layers * layer_floats(d, kR) + 3 * static_cast<size_t>(d.S) * kLd +
          static_cast<size_t>(Hm) * kLd * 2 + static_cast<size_t>(d.V) * kLd3 * 2 +
          static_cast<size_t>(Hm) * kLd3 + static_cast<size_t>(d.V) * kLd +
          static_cast<size_t>(d.R) * kLd + 6 * kR + 3 * kThreads + 16;
 }
 
-__device__ Smem carve(float* base, const Dims& d) {
-  const int Hm = hmax(d);
+// The chunk height that fits: 32 rows, else 16 (0 if neither fits).
+inline int rows_for(const Dims& d) {
+  for (const int r : {32, 16})
+    if (smem_floats(d, r) * sizeof(float) <= static_cast<size_t>(kMaxSmem)) return r;
+  return 0;
+}
+
+__device__ Smem carve(float* base, const Dims& d, int kR) {
+  const int Hm = hmax(d), kLd = ld1(kR), kLd3 = ld3(kR);
   Smem m;
   float* p = base;
   m.VH = p; p += d.n_layers * Hm * kLd3;
@@ -304,7 +317,7 @@ __device__ Smem carve(float* base, const Dims& d) {
   return m;
 }
 
-template <typename T>
+template <typename T, int kR>
 __global__ void __launch_bounds__(kThreads, 1)
 pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
                       const int* __restrict__ idx, const float* __restrict__ mask,
@@ -314,7 +327,8 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
                       const float* __restrict__ dv, Dims d, float* __restrict__ d_tab_s,
                       float* __restrict__ d_tab_v, double* __restrict__ gw) {
   extern __shared__ float4 smem4[];
-  const Smem sm = carve(reinterpret_cast<float*>(smem4), d);
+  constexpr int kLd = ld1(kR), kLd3 = ld3(kR);
+  const Smem sm = carve(reinterpret_cast<float*>(smem4), d, kR);
   const int S = d.S, V = d.V, H0 = d.H0, Hj = d.Hj, K = d.K, TN = d.tile_n, L = d.n_layers;
   const int Hm = hmax(d);
 
@@ -389,7 +403,7 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
     __syncthreads();
 
     // ---- forward recompute, GVP 0 (as K2) ------------------------------------
-    channel_norms<T>(VH0, sm.SH, H0);
+    channel_norms<T, kR>(VH0, sm.SH, H0);
     __syncthreads();
     {
       float* Z0 = Zl(0);
@@ -433,7 +447,7 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
              [&](int row, int n, float acc) { VHc[n * kLd3 + row] = rnd<T>(acc); });
       }
       __syncthreads();
-      channel_norms<T>(VHc, sm.SH, Hj);
+      channel_norms<T, kR>(VHc, sm.SH, Hj);
       {
         const T* W = wts + o.w1f;
         gemm(sm.F, kLd, kR, S, S, [&](int k, int n) { return to_f(W[k * S + n]); },
@@ -535,7 +549,7 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
 
       // d_wg, d_bg, d_wu; dfeats += dzg @ wg^T; dvh = dvu @ wu^T
       dot_t(sm.F, kLd, S, sm.DG, kLd, V, kR, gwg);
-      colsum(sm.DG, kLd, V, gbg);
+      colsum<kR>(sm.DG, kLd, V, gbg);
       dot_t(VHc, kLd3, Hl, sm.DV, kLd3, V, 3 * kR, gwu);
       gemm(sm.DG, kLd, kR, V, S, [&](int k, int n) { return to_f(Wg[n * V + k]); },
            [&](int r, int n, float acc) {
@@ -555,11 +569,11 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
           sm.F[s * kLd + r] = rnd<T>(zp * sigmoid_f(zp));
         }
       }
-      channel_norms<T>(VHc, sm.SH, Hl);
+      channel_norms<T, kR>(VHc, sm.SH, Hl);
       __syncthreads();
 
       // d_b1, d_w1f (or d_w1d), d_w1sh; dsh = dz @ w1sh^T
-      colsum(sm.DZ, kLd, S, gb1);
+      colsum<kR>(sm.DZ, kLd, S, gb1);
       if (l > 0)
         dot_t(sm.F, kLd, S, sm.DZ, kLd, S, kR, gw + gradj_offsets(d, l).w1f);
       else
@@ -627,7 +641,7 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
   }
 }
 
-template <typename T>
+template <typename T, int kR>
 int launch(const void* tab_s, const void* tab_v, const int* idx, const float* mask,
            const void* rterm, const void* dirterm, const void* rbf, const void* xdir,
            const void* wts, const float* ds, const float* dv, int B, const Dims& d,
@@ -636,16 +650,16 @@ int launch(const void* tab_s, const void* tab_v, const int* idx, const float* ma
   // larger shape), so a launch inside a CUDA-graph capture makes no
   // attribute call
   static size_t configured = 0;
-  const size_t smem = smem_floats(d) * sizeof(float);
+  const size_t smem = smem_floats(d, kR) * sizeof(float);
   if (smem > configured) {
-    const cudaError_t e = cudaFuncSetAttribute(pp_message_bwd_kernel<T>,
+    const cudaError_t e = cudaFuncSetAttribute(pp_message_bwd_kernel<T, kR>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = smem;
   }
   const dim3 grid(d.tiles, B);
-  pp_message_bwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  pp_message_bwd_kernel<T, kR><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(tab_s), static_cast<const T*>(tab_v), idx, mask,
       static_cast<const T*>(rterm), static_cast<const T*>(dirterm), static_cast<const T*>(rbf),
       static_cast<const T*>(xdir), static_cast<const T*>(wts), ds, dv, d, d_tab_s, d_tab_v, gw);
@@ -672,9 +686,12 @@ Dims make_dims(int P, int copies, int Nd, int K, int S, int V, int H0, int Hj, i
 
 }  // namespace
 
-// Dynamic shared memory of one block, in bytes.
+// Dynamic shared memory of one block of the variant that runs at these
+// widths, in bytes (of the 16-row variant, above kMaxSmem, where none fits).
 extern "C" size_t pp_message_bwd_smem_bytes(int S, int V, int H0, int Hj, int R, int n_layers) {
-  return smem_floats(make_dims(1, 1, 1, 1, S, V, H0, Hj, R, n_layers)) * sizeof(float);
+  const Dims d = make_dims(1, 1, 1, 1, S, V, H0, Hj, R, n_layers);
+  const int rows = rows_for(d);
+  return smem_floats(d, rows ? rows : 16) * sizeof(float);
 }
 
 // Elements of the fp64 weight-gradient buffer (split_weights order).
@@ -706,9 +723,13 @@ extern "C" int pp_message_bwd_launch(int bf16, const void* tab_s, const void* ta
     return static_cast<int>(cudaErrorInvalidValue);
   const Dims d = make_dims(P, copies, Nd, K, S, V, H0, Hj, R, n_layers);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rows = rows_for(d);
+  if (rows == 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto go = [&](auto kern) {
+    return kern(tab_s, tab_v, idx, mask, rterm, dirterm, rbf, xdir, wts, ds, dv, B, d, d_tab_s,
+                d_tab_v, gw, st);
+  };
   if (bf16)
-    return launch<__nv_bfloat16>(tab_s, tab_v, idx, mask, rterm, dirterm, rbf, xdir, wts, ds,
-                                 dv, B, d, d_tab_s, d_tab_v, gw, st);
-  return launch<float>(tab_s, tab_v, idx, mask, rterm, dirterm, rbf, xdir, wts, ds, dv, B, d,
-                       d_tab_s, d_tab_v, gw, st);
+    return rows == 32 ? go(launch<__nv_bfloat16, 32>) : go(launch<__nv_bfloat16, 16>);
+  return rows == 32 ? go(launch<float, 32>) : go(launch<float, 16>);
 }

@@ -171,7 +171,7 @@ def test_golden_knn_chain_on_card(dev):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", ["train", "copies=3", "hj=V+1",
                                   "masked destination", "repeated source",
-                                  "K=1", "odd batch B=3"])
+                                  "K=1", "odd batch B=3", "5 GVPs"])
 def test_pp_backward_kernel_matches_plain(dev, case, dtype):
     """K3 against autograd through the plain version at chip_smoke.py's
     ppbwd cases: fp32 within rtol 2e-4 / atol 2e-5 of the plain version
@@ -198,6 +198,30 @@ def test_pp_backward_kernel_matches_plain(dev, case, dtype):
         floor = cs.bf16_rel(cs.ppbwd_grads(args, kw, False, cot), want)
         bound = max(cs.PPBWD_TOL["bfloat16"], cs.PPBWD_BF16_FLOOR * floor)
     print(f"{case} {dtype}: {cs.ppbwd_compare(case, got, want, dtype, bound)}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_gvps", [3, 4, 5, 6])
+def test_pp_backward_shared_memory_fits_deeper_chains(dev, n_gvps, dtype):
+    """K3's shared memory per block stays within a Hopper block's at the
+    training widths (S=128, V=16, H0=17, Hj=16, R=16) for chains of 3-6
+    GVPs (16-row chunks where 32 rows do not fit), and K3 runs such a
+    chain in each dtype."""
+    import chip_smoke as cs
+    from pharmaforge_tpu_torch.ops import pp_message as ppm
+    lib = ppm._bwd_launcher()
+    assert lib.pp_message_bwd_smem_bytes(128, 16, 17, 16, 16,
+                                         n_gvps) <= ppm._MAX_SMEM
+    args, kw = cs.pp_case(dev, dtype=dtype, table_dtype=torch.float32,
+                          n_groups=1, copies=2, n_gvps=n_gvps)
+    b, nd = args[0].shape[0], args[2].mask.shape[1]
+    cot = (torch.ones(b, nd, kw["scalar_size"], device=dev),
+           torch.ones(b, nd, kw["vector_size"], 3, device=dev))
+    before = ppm.bwd_launches
+    got = cs.ppbwd_grads(args, kw, True, cot)
+    torch.cuda.synchronize()
+    assert ppm.bwd_launches == before + 1
+    assert all(bool(torch.isfinite(g).all()) for g in got)
 
 
 def test_one_train_step_on_card_matches_cpu(dev):

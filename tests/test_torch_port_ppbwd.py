@@ -51,9 +51,12 @@ def _port_grads(c, fn, **kw):
     return (pre_s.grad.numpy(), [q.grad.numpy() for q in planes], layers)
 
 
+@pytest.mark.parametrize("n_gvps", [3, 5])
 @pytest.mark.parametrize("copies", [1, 3])
-def test_plain_backward_matches_jax_pallas_backward_and_twin(rng, copies):
-    c = k2_case(rng, copies=copies, hj=5)          # later GVPs: hidden V+1
+def test_plain_backward_matches_jax_pallas_backward_and_twin(rng, copies,
+                                                            n_gvps):
+    c = k2_case(rng, copies=copies, hj=5,           # later GVPs: hidden V+1
+                n_gvps=n_gvps)
     kw = dict(scalar_size=c["s"], vector_size=c["v"], rbf_dim=c["r"],
               copies=copies)
     j_pre, j_planes, j_edge, j_layers = jax_side(c)
@@ -68,7 +71,7 @@ def test_plain_backward_matches_jax_pallas_backward_and_twin(rng, copies):
     flat_got = jax.tree_util.tree_leaves(got)
     for want in (g_kernel, g_twin):
         flat_want = jax.tree_util.tree_leaves(want)
-        assert len(flat_got) == len(flat_want) == 4 + 6 * 3
+        assert len(flat_got) == len(flat_want) == 4 + 6 * n_gvps
         for i, (a, b) in enumerate(zip(flat_got, flat_want)):
             np.testing.assert_allclose(a, np.asarray(b), **GRAD_TOL,
                                        err_msg=f"grad leaf {i}")
