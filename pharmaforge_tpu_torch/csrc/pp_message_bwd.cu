@@ -57,8 +57,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;         // also the most slots a tile holds
-constexpr int kDests = 64;            // the most destinations a tile holds
+constexpr int kThreads = 256;         // also the most slots a work item holds
+constexpr int kDests = 64;            // the most destinations a work item holds
+constexpr int kRing = 512;            // compacted rows a block holds: >= kR - 1 + kThreads
 constexpr int kMaxSmem = 232448;      // dynamic shared memory a block may use (Hopper)
 
 // Edge rows per chunk, kR, is a template parameter: 32, or 16 for chains
@@ -89,7 +90,7 @@ __device__ __forceinline__ float dsilu_f(float z) {
 }
 
 struct Dims {
-  int P, copies, Nd, K, S, V, H0, Hj, R, n_layers, tile_n, tiles;
+  int B, P, copies, Nd, K, S, V, H0, Hj, R, n_layers, tile_n, tiles, items;
 };
 
 // Offsets (elements) of the packed T weights; must match K2's
@@ -259,10 +260,10 @@ struct Smem {
   float *F, *SH, *VT;                     // feats, rounded norms, vec
   float *DF, *DZ, *DV, *DH, *DG, *DR;     // cotangents
   float *RB, *XD;                         // chunk rows' rbf and x_dir
-  float *MR;                              // chunk rows' mask
-  int *JR, *ER;                           // source index, slot in the tile
-  float* ML;                              // compacted valid slots
-  int *JL, *SL, *WS;
+  float* MR;                              // chunk rows: mask,
+  int *JR, *ER, *OR;                      // table row b * P + j, slot, output row
+  float* ML;                              // ring of compacted rows: the same
+  int *TR, *EL, *OL, *WS;
 };
 
 __host__ __device__ inline int hmax(const Dims& d) { return d.H0 > d.Hj ? d.H0 : d.Hj; }
@@ -278,7 +279,7 @@ __host__ __device__ inline size_t smem_floats(const Dims& d, int kR) {
   return d.n_layers * layer_floats(d, kR) + 3 * static_cast<size_t>(d.S) * kLd +
          static_cast<size_t>(Hm) * kLd * 2 + static_cast<size_t>(d.V) * kLd3 * 2 +
          static_cast<size_t>(Hm) * kLd3 + static_cast<size_t>(d.V) * kLd +
-         static_cast<size_t>(d.R) * kLd + 6 * kR + 3 * kThreads + 16;
+         static_cast<size_t>(d.R) * kLd + 7 * kR + 4 * kRing + 16;
 }
 
 // The chunk height that fits: 32 rows, else 16 (0 if neither fits).
@@ -310,9 +311,11 @@ __device__ Smem carve(float* base, const Dims& d, int kR) {
   m.MR = p; p += kR;
   m.JR = reinterpret_cast<int*>(p); p += kR;
   m.ER = reinterpret_cast<int*>(p); p += kR;
-  m.ML = p; p += kThreads;
-  m.JL = reinterpret_cast<int*>(p); p += kThreads;
-  m.SL = reinterpret_cast<int*>(p); p += kThreads;
+  m.OR = reinterpret_cast<int*>(p); p += kR;
+  m.ML = p; p += kRing;
+  m.TR = reinterpret_cast<int*>(p); p += kRing;
+  m.EL = reinterpret_cast<int*>(p); p += kRing;
+  m.OL = reinterpret_cast<int*>(p); p += kRing;
   m.WS = reinterpret_cast<int*>(p);
   return m;
 }
@@ -332,33 +335,37 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
   const int S = d.S, V = d.V, H0 = d.H0, Hj = d.Hj, K = d.K, TN = d.tile_n, L = d.n_layers;
   const int Hm = hmax(d);
 
-  const int b = blockIdx.y, tile = blockIdx.x;
-  const int g = b / d.copies;
-  const int n0 = tile * TN;
   const int tid = threadIdx.x;
-  const size_t e0 = (static_cast<size_t>(g) * d.Nd + n0) * K;  // first slot
 
-  // ---- compact the tile's valid slots (mask set, index in range) ----------
-  int flag = 0, j = -1;
-  float m = 0.0f;
-  if (tid < TN * K && n0 + tid / K < d.Nd) {
-    j = idx[e0 + tid];
-    m = mask[e0 + tid];
-    flag = m != 0.0f && j >= 0 && j < d.P;
-  }
-  const int pos = block_scan(flag, sm.WS, sm.WS + 8);
-  const int n_valid = sm.WS[8];
-  if (flag) {
-    sm.ML[pos] = m;
-    sm.JL[pos] = j;
-    sm.SL[pos] = tid;
-  }
-  __syncthreads();
+  // Append work item `item`'s valid slots (mask set, index in range) to the
+  // ring at `tail`, in slot order; returns how many it appended.
+  auto compact = [&](int item, int tail) -> int {
+    const int b = item % d.B, tile = item / d.B;
+    const int g = b / d.copies, n0 = tile * TN;
+    const int e0 = (g * d.Nd + n0) * K;  // first slot
+    const int nl = tid / K;
+    int flag = 0, j = -1;
+    float m = 0.0f;
+    if (tid < TN * K && n0 + nl < d.Nd) {
+      j = idx[e0 + tid];
+      m = mask[e0 + tid];
+      flag = m != 0.0f && j >= 0 && j < d.P;
+    }
+    const int pos = block_scan(flag, sm.WS, sm.WS + 8);
+    const int n_valid = sm.WS[8];
+    if (flag) {
+      const int q = (tail + pos) & (kRing - 1);
+      sm.ML[q] = m;
+      sm.TR[q] = b * d.P + j;
+      sm.EL[q] = e0 + tid;
+      sm.OL[q] = b * d.Nd + n0 + nl;
+    }
+    __syncthreads();
+    return n_valid;
+  };
 
   const Layer0 o0 = layer0_offsets(d);
   const Grad0 q0 = grad0_offsets(d);
-  const size_t tab_row0 = static_cast<size_t>(b) * d.P;
-  const size_t out_row0 = static_cast<size_t>(b) * d.Nd + n0;
   const int w3 = 3 * H0;
   // per-GVP stored stages
   auto VHl = [&](int l) { return sm.VH + l * Hm * kLd3; };
@@ -366,20 +373,33 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
   auto Gl = [&](int l) { return sm.G + l * V * kLd; };
   auto VUl = [&](int l) { return sm.VU + l * V * kLd3; };
 
-  for (int c0 = 0; c0 < n_valid; c0 += kR) {
+  // The block's work items (item = blockIdx.x + i * gridDim.x, batch row
+  // fastest) stream through the ring: each chunk takes the next kR rows,
+  // across item boundaries, so only the block's last chunk is partial.
+  int head = 0, tail = 0, next = blockIdx.x;
+  for (;;) {
+    while (tail - head < kR && next < d.items) {
+      tail += compact(next, tail);
+      next += gridDim.x;
+    }
+    const int nr = min(kR, tail - head);
+    if (nr == 0) break;
     // ---- this chunk's rows: gather + group-level terms + geometry ----------
     for (int r = tid; r < kR; r += kThreads) {
-      const bool on = c0 + r < n_valid;
-      sm.MR[r] = on ? sm.ML[c0 + r] : 0.0f;
-      sm.JR[r] = on ? sm.JL[c0 + r] : -1;
-      sm.ER[r] = on ? sm.SL[c0 + r] : -1;
+      const bool on = r < nr;
+      const int q = (head + r) & (kRing - 1);
+      sm.MR[r] = on ? sm.ML[q] : 0.0f;
+      sm.JR[r] = on ? sm.TR[q] : -1;
+      sm.ER[r] = on ? sm.EL[q] : -1;
+      sm.OR[r] = on ? sm.OL[q] : -1;
     }
+    head += nr;
     __syncthreads();
     for (int i = tid; i < kR * S; i += kThreads) {
       const int r = i / S, s = i - r * S;
       const int jr = sm.JR[r];
-      sm.F[s * kLd + r] = jr >= 0 ? rnd<T>(to_f(tab_s[(tab_row0 + jr) * S + s]) +
-                                           to_f(rterm[(e0 + sm.ER[r]) * S + s]))
+      sm.F[s * kLd + r] = jr >= 0 ? rnd<T>(to_f(tab_s[static_cast<size_t>(jr) * S + s]) +
+                                           to_f(rterm[static_cast<size_t>(sm.ER[r]) * S + s]))
                                   : 0.0f;
     }
     float* VH0 = VHl(0);
@@ -388,17 +408,19 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
       const int c = ch / H0, h = ch - c * H0;
       const int jr = sm.JR[r];
       VH0[h * kLd3 + c * kR + r] =
-          jr >= 0 ? rnd<T>(to_f(tab_v[(tab_row0 + jr) * w3 + ch]) +
-                           to_f(dirterm[(e0 + sm.ER[r]) * w3 + ch]))
+          jr >= 0 ? rnd<T>(to_f(tab_v[static_cast<size_t>(jr) * w3 + ch]) +
+                           to_f(dirterm[static_cast<size_t>(sm.ER[r]) * w3 + ch]))
                   : 0.0f;
     }
     for (int i = tid; i < kR * d.R; i += kThreads) {
       const int r = i / d.R, x = i - r * d.R;
-      sm.RB[x * kLd + r] = sm.JR[r] >= 0 ? to_f(rbf[(e0 + sm.ER[r]) * d.R + x]) : 0.0f;
+      sm.RB[x * kLd + r] =
+          sm.JR[r] >= 0 ? to_f(rbf[static_cast<size_t>(sm.ER[r]) * d.R + x]) : 0.0f;
     }
     for (int i = tid; i < kR * 3; i += kThreads) {
       const int r = i / 3, c = i - r * 3;
-      sm.XD[c * kR + r] = sm.JR[r] >= 0 ? to_f(xdir[(e0 + sm.ER[r]) * 3 + c]) : 0.0f;
+      sm.XD[c * kR + r] =
+          sm.JR[r] >= 0 ? to_f(xdir[static_cast<size_t>(sm.ER[r]) * 3 + c]) : 0.0f;
     }
     __syncthreads();
 
@@ -494,16 +516,15 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
     // ---- cotangent seeds: the masked broadcast over the K slots --------------
     for (int i = tid; i < kR * S; i += kThreads) {
       const int r = i / S, s = i - r * S;
-      const int er = sm.ER[r];
-      sm.DF[s * kLd + r] =
-          er >= 0 ? rnd<T>(ds[(out_row0 + er / K) * S + s] * sm.MR[r]) : 0.0f;
+      const int o = sm.OR[r];
+      sm.DF[s * kLd + r] = o >= 0 ? rnd<T>(ds[static_cast<size_t>(o) * S + s] * sm.MR[r]) : 0.0f;
     }
     for (int i = tid; i < kR * 3 * V; i += kThreads) {
       const int r = i / (3 * V), q = i - r * 3 * V;  // q = v * 3 + plane
       const int v = q / 3, c = q - v * 3;
-      const int er = sm.ER[r];
+      const int o = sm.OR[r];
       sm.DV[v * kLd3 + c * kR + r] =
-          er >= 0 ? rnd<T>(dv[(out_row0 + er / K) * 3 * V + q] * sm.MR[r]) : 0.0f;
+          o >= 0 ? rnd<T>(dv[static_cast<size_t>(o) * 3 * V + q] * sm.MR[r]) : 0.0f;
     }
     __syncthreads();
 
@@ -626,14 +647,14 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
         for (int i = tid; i < kR * S; i += kThreads) {
           const int r = i / S, s = i - r * S;
           const int jr = sm.JR[r];
-          if (jr >= 0) atomicAdd(d_tab_s + (tab_row0 + jr) * S + s, sm.DZ[s * kLd + r]);
+          if (jr >= 0) atomicAdd(d_tab_s + static_cast<size_t>(jr) * S + s, sm.DZ[s * kLd + r]);
         }
         for (int i = tid; i < kR * w3; i += kThreads) {
           const int r = i / w3, ch = i - r * w3;  // ch = plane * H0 + h
           const int c = ch / H0, h = ch - c * H0;
           const int jr = sm.JR[r];
           if (jr >= 0)
-            atomicAdd(d_tab_v + (tab_row0 + jr) * w3 + ch, sm.DH[h * kLd3 + c * kR + r]);
+            atomicAdd(d_tab_v + static_cast<size_t>(jr) * w3 + ch, sm.DH[h * kLd3 + c * kR + r]);
         }
       }
       __syncthreads();
@@ -644,31 +665,46 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
 template <typename T, int kR>
 int launch(const void* tab_s, const void* tab_v, const int* idx, const float* mask,
            const void* rterm, const void* dirterm, const void* rbf, const void* xdir,
-           const void* wts, const float* ds, const float* dv, int B, const Dims& d,
+           const void* wts, const float* ds, const float* dv, const Dims& d,
            float* d_tab_s, float* d_tab_v, double* gw, cudaStream_t stream) {
-  // raise the kernel's shared-memory ceiling once (and again only for a
-  // larger shape), so a launch inside a CUDA-graph capture makes no
-  // attribute call
+  // the kernel's shared-memory ceiling, blocks per SM and the SM count are
+  // set or queried once (again only for a larger shape or another device),
+  // so a launch inside a CUDA-graph capture makes no attribute call
   static size_t configured = 0;
+  static int per_sm = 1;
+  static int sms[64] = {0};
+  auto kern = pp_message_bwd_kernel<T, kR>;
   const size_t smem = smem_floats(d, kR) * sizeof(float);
+  cudaError_t e;
   if (smem > configured) {
-    const cudaError_t e = cudaFuncSetAttribute(pp_message_bwd_kernel<T, kR>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
     configured = smem;
   }
-  const dim3 grid(d.tiles, B);
-  pp_message_bwd_kernel<T, kR><<<grid, kThreads, smem, stream>>>(
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (sms[dev] == 0) {
+    e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int grid = d.items < per_sm * sms[dev] ? d.items : per_sm * sms[dev];
+  kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(tab_s), static_cast<const T*>(tab_v), idx, mask,
       static_cast<const T*>(rterm), static_cast<const T*>(dirterm), static_cast<const T*>(rbf),
       static_cast<const T*>(xdir), static_cast<const T*>(wts), ds, dv, d, d_tab_s, d_tab_v, gw);
   return static_cast<int>(cudaGetLastError());
 }
 
-Dims make_dims(int P, int copies, int Nd, int K, int S, int V, int H0, int Hj, int R,
+Dims make_dims(int B, int P, int copies, int Nd, int K, int S, int V, int H0, int Hj, int R,
                int n_layers) {
   Dims d;
+  d.B = B;
   d.P = P;
   d.copies = copies;
   d.Nd = Nd;
@@ -681,6 +717,7 @@ Dims make_dims(int P, int copies, int Nd, int K, int S, int V, int H0, int Hj, i
   d.n_layers = n_layers;
   d.tile_n = K > 0 ? (kThreads / K < kDests ? kThreads / K : kDests) : 0;
   d.tiles = d.tile_n > 0 ? (Nd + d.tile_n - 1) / d.tile_n : 0;
+  d.items = d.tiles * B;
   return d;
 }
 
@@ -689,14 +726,14 @@ Dims make_dims(int P, int copies, int Nd, int K, int S, int V, int H0, int Hj, i
 // Dynamic shared memory of one block of the variant that runs at these
 // widths, in bytes (of the 16-row variant, above kMaxSmem, where none fits).
 extern "C" size_t pp_message_bwd_smem_bytes(int S, int V, int H0, int Hj, int R, int n_layers) {
-  const Dims d = make_dims(1, 1, 1, 1, S, V, H0, Hj, R, n_layers);
+  const Dims d = make_dims(1, 1, 1, 1, 1, S, V, H0, Hj, R, n_layers);
   const int rows = rows_for(d);
   return smem_floats(d, rows ? rows : 16) * sizeof(float);
 }
 
 // Elements of the fp64 weight-gradient buffer (split_weights order).
 extern "C" int pp_message_bwd_grads_size(int S, int V, int H0, int Hj, int R, int n_layers) {
-  const Dims d = make_dims(1, 1, 1, 1, S, V, H0, Hj, R, n_layers);
+  const Dims d = make_dims(1, 1, 1, 1, 1, S, V, H0, Hj, R, n_layers);
   return grad0_size(d) + (n_layers - 1) * gradj_size(d);
 }
 
@@ -721,12 +758,12 @@ extern "C" int pp_message_bwd_launch(int bf16, const void* tab_s, const void* ta
       R < 1 || R > 128 || n_layers < 1 || (n_layers > 1 && (Hj < 1 || Hj > 128)) ||
       G * copies != B)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Dims d = make_dims(P, copies, Nd, K, S, V, H0, Hj, R, n_layers);
+  const Dims d = make_dims(B, P, copies, Nd, K, S, V, H0, Hj, R, n_layers);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = rows_for(d);
   if (rows == 0) return static_cast<int>(cudaErrorInvalidValue);
   auto go = [&](auto kern) {
-    return kern(tab_s, tab_v, idx, mask, rterm, dirterm, rbf, xdir, wts, ds, dv, B, d, d_tab_s,
+    return kern(tab_s, tab_v, idx, mask, rterm, dirterm, rbf, xdir, wts, ds, dv, d, d_tab_s,
                 d_tab_v, gw, st);
   };
   if (bf16)
