@@ -185,11 +185,15 @@ __device__ __forceinline__ void gemm(const float* A, int lda, int m, int kd, int
   }
 }
 
+// A block's weight-gradient sum: the chunk's fp32 sum x stored in the
+// block's own slice on its first chunk, added to it after.
+__device__ __forceinline__ void add_to(float* p, float x, bool first) { *p = first ? x : *p + x; }
+
 // gw[x * ny + y] += sum_{r < m} A[x * lda + r] * B[y * ldb + r]: a weight
-// gradient over the chunk's rows (m a multiple of 4), summed in fp32 and added
-// to the fp64 buffer with one atomic per element.
+// gradient over the chunk's rows (m a multiple of 4), summed in fp32 into the
+// block's slice (`add_to`).
 __device__ __forceinline__ void dot_t(const float* A, int lda, int nx, const float* B, int ldb,
-                                      int ny, int m, double* gw) {
+                                      int ny, int m, float* gw, bool first) {
   for (int task = threadIdx.x; task < nx * ny; task += kThreads) {
     const int y = task % ny, x = task / ny;
     const float* a = A + x * lda;
@@ -204,17 +208,17 @@ __device__ __forceinline__ void dot_t(const float* A, int lda, int nx, const flo
       acc = fmaf(av.z, bv.z, acc);
       acc = fmaf(av.w, bv.w, acc);
     }
-    atomicAdd(gw + task, static_cast<double>(acc));
+    add_to(gw + task, acc, first);
   }
 }
 
 // gw[y] += sum_{r < kR} B[y * ldb + r] (a bias gradient).
 template <int kR>
-__device__ __forceinline__ void colsum(const float* B, int ldb, int ny, double* gw) {
+__device__ __forceinline__ void colsum(const float* B, int ldb, int ny, float* gw, bool first) {
   for (int y = threadIdx.x; y < ny; y += kThreads) {
     float acc = 0.0f;
     for (int r = 0; r < kR; ++r) acc += B[y * ldb + r];
-    atomicAdd(gw + y, static_cast<double>(acc));
+    add_to(gw + y, acc, first);
   }
 }
 
@@ -328,7 +332,7 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
                       const T* __restrict__ rbf, const T* __restrict__ xdir,
                       const T* __restrict__ wts, const float* __restrict__ ds,
                       const float* __restrict__ dv, Dims d, float* __restrict__ d_tab_s,
-                      float* __restrict__ d_tab_v, double* __restrict__ gw) {
+                      float* __restrict__ d_tab_v, float* __restrict__ part) {
   extern __shared__ float4 smem4[];
   constexpr int kLd = ld1(kR), kLd3 = ld3(kR);
   const Smem sm = carve(reinterpret_cast<float*>(smem4), d, kR);
@@ -376,8 +380,12 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
   // The block's work items (item = blockIdx.x + i * gridDim.x, batch row
   // fastest) stream through the ring: each chunk takes the next kR rows,
   // across item boundaries, so only the block's last chunk is partial.
+  // this block's slice of the weight-gradient sums (split_weights order)
+  const int n_w = grad0_size(d) + (L - 1) * gradj_size(d);
+  float* const gw = part + static_cast<size_t>(blockIdx.x) * n_w;
   int head = 0, tail = 0, next = blockIdx.x;
-  for (;;) {
+  bool first = true;
+  for (;; first = false) {
     while (tail - head < kR && next < d.items) {
       tail += compact(next, tail);
       next += gridDim.x;
@@ -536,7 +544,7 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
       const float* Gc = Gl(l);
       const float* VUc = VUl(l);
       const T *Wg, *Wu, *W1sh;
-      double *gwg, *gbg, *gwu, *gw1sh, *gb1;
+      float *gwg, *gbg, *gwu, *gw1sh, *gb1;
       if (l == 0) {
         Wg = wts + o0.wg; Wu = wts + o0.wu; W1sh = wts + o0.w1_sh;
         gwg = gw + q0.wg; gbg = gw + q0.bg; gwu = gw + q0.wu; gw1sh = gw + q0.w1sh;
@@ -569,9 +577,9 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
       __syncthreads();
 
       // d_wg, d_bg, d_wu; dfeats += dzg @ wg^T; dvh = dvu @ wu^T
-      dot_t(sm.F, kLd, S, sm.DG, kLd, V, kR, gwg);
-      colsum<kR>(sm.DG, kLd, V, gbg);
-      dot_t(VHc, kLd3, Hl, sm.DV, kLd3, V, 3 * kR, gwu);
+      dot_t(sm.F, kLd, S, sm.DG, kLd, V, kR, gwg, first);
+      colsum<kR>(sm.DG, kLd, V, gbg, first);
+      dot_t(VHc, kLd3, Hl, sm.DV, kLd3, V, 3 * kR, gwu, first);
       gemm(sm.DG, kLd, kR, V, S, [&](int k, int n) { return to_f(Wg[n * V + k]); },
            [&](int r, int n, float acc) {
              sm.DF[n * kLd + r] = rnd<T>(sm.DF[n * kLd + r] + rnd<T>(acc));
@@ -594,12 +602,12 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
       __syncthreads();
 
       // d_b1, d_w1f (or d_w1d), d_w1sh; dsh = dz @ w1sh^T
-      colsum<kR>(sm.DZ, kLd, S, gb1);
+      colsum<kR>(sm.DZ, kLd, S, gb1, first);
       if (l > 0)
-        dot_t(sm.F, kLd, S, sm.DZ, kLd, S, kR, gw + gradj_offsets(d, l).w1f);
+        dot_t(sm.F, kLd, S, sm.DZ, kLd, S, kR, gw + gradj_offsets(d, l).w1f, first);
       else
-        dot_t(sm.RB, kLd, d.R, sm.DZ, kLd, S, kR, gw + q0.w1d);
-      dot_t(sm.SH, kLd, Hl, sm.DZ, kLd, S, kR, gw1sh);
+        dot_t(sm.RB, kLd, d.R, sm.DZ, kLd, S, kR, gw + q0.w1d, first);
+      dot_t(sm.SH, kLd, Hl, sm.DZ, kLd, S, kR, gw1sh, first);
       gemm(sm.DZ, kLd, kR, S, Hl, [&](int k, int n) { return to_f(W1sh[n * S + k]); },
            [&](int r, int n, float acc) { sm.DR[n * kLd + r] = rnd<T>(acc); });
       __syncthreads();
@@ -630,7 +638,7 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
         const LayerJ o = layerj_offsets(d, l);
         const T* Wh = wts + o.wh;
         const T* W1f = wts + o.w1f;
-        dot_t(sm.VT, kLd3, V, sm.DH, kLd3, Hj, 3 * kR, gw + gradj_offsets(d, l).wh);
+        dot_t(sm.VT, kLd3, V, sm.DH, kLd3, Hj, 3 * kR, gw + gradj_offsets(d, l).wh, first);
         gemm(sm.DH, kLd3, 3 * kR, Hj, V, [&](int k, int n) { return to_f(Wh[n * Hj + k]); },
              [&](int row, int n, float acc) { sm.DV[n * kLd3 + row] = rnd<T>(acc); });
         gemm(sm.DZ, kLd, kR, S, S, [&](int k, int n) { return to_f(W1f[n * S + k]); },
@@ -642,7 +650,7 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
           for (int c = 0; c < 3; ++c)
             for (int r = 0; r < kR; ++r)
               acc += sm.XD[c * kR + r] * sm.DH[h * kLd3 + c * kR + r];
-          atomicAdd(gw + q0.wh0 + h, static_cast<double>(acc));
+          add_to(gw + q0.wh0 + h, acc, first);
         }
         for (int i = tid; i < kR * S; i += kThreads) {
           const int r = i / S, s = i - r * S;
@@ -660,16 +668,28 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
       __syncthreads();
     }
   }
+  // a block that got no rows still owns its slice
+  if (first)
+    for (int i = tid; i < n_w; i += kThreads) gw[i] = 0.0f;
 }
 
+// gw[i] += the blocks' slices summed in fp64, in block order
+__global__ void __launch_bounds__(kThreads)
+sum_slices_kernel(const float* __restrict__ part, int blocks, int n_w, double* __restrict__ gw) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n_w) return;
+  double acc = 0.0;
+  for (int b = 0; b < blocks; ++b) acc += static_cast<double>(part[static_cast<size_t>(b) * n_w + i]);
+  gw[i] += acc;
+}
+
+// Sets the kernel's shared-memory ceiling and returns its persistent grid,
+// blocks per SM x SMs but at most one block an item (< 0: a CUDA error).
+// The attribute, blocks per SM and the SM count are set or queried once
+// (again only for a larger shape or another device), so a launch inside a
+// CUDA-graph capture makes no attribute call.
 template <typename T, int kR>
-int launch(const void* tab_s, const void* tab_v, const int* idx, const float* mask,
-           const void* rterm, const void* dirterm, const void* rbf, const void* xdir,
-           const void* wts, const float* ds, const float* dv, const Dims& d,
-           float* d_tab_s, float* d_tab_v, double* gw, cudaStream_t stream) {
-  // the kernel's shared-memory ceiling, blocks per SM and the SM count are
-  // set or queried once (again only for a larger shape or another device),
-  // so a launch inside a CUDA-graph capture makes no attribute call
+int configure(const Dims& d) {
   static size_t configured = 0;
   static int per_sm = 1;
   static int sms[64] = {0};
@@ -679,25 +699,41 @@ int launch(const void* tab_s, const void* tab_v, const int* idx, const float* ma
   if (smem > configured) {
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) return -static_cast<int>(e);
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    if (e != cudaSuccess) return -static_cast<int>(e);
+    if (per_sm < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
     configured = smem;
   }
   int dev = 0;
   e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  if (dev < 0 || dev >= 64) return -static_cast<int>(cudaErrorInvalidDevice);
   if (sms[dev] == 0) {
     e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) return -static_cast<int>(e);
   }
-  const int grid = d.items < per_sm * sms[dev] ? d.items : per_sm * sms[dev];
-  kern<<<grid, kThreads, smem, stream>>>(
+  return d.items < per_sm * sms[dev] ? d.items : per_sm * sms[dev];
+}
+
+template <typename T, int kR>
+int launch(const void* tab_s, const void* tab_v, const int* idx, const float* mask,
+           const void* rterm, const void* dirterm, const void* rbf, const void* xdir,
+           const void* wts, const float* ds, const float* dv, const Dims& d, float* d_tab_s,
+           float* d_tab_v, double* gw, float* part, int blocks, cudaStream_t stream) {
+  const int grid = configure<T, kR>(d);
+  if (grid < 0) return -grid;
+  if (blocks != grid) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_floats(d, kR) * sizeof(float);
+  pp_message_bwd_kernel<T, kR><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(tab_s), static_cast<const T*>(tab_v), idx, mask,
       static_cast<const T*>(rterm), static_cast<const T*>(dirterm), static_cast<const T*>(rbf),
-      static_cast<const T*>(xdir), static_cast<const T*>(wts), ds, dv, d, d_tab_s, d_tab_v, gw);
+      static_cast<const T*>(xdir), static_cast<const T*>(wts), ds, dv, d, d_tab_s, d_tab_v, part);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_w = grad0_size(d) + (d.n_layers - 1) * gradj_size(d);
+  sum_slices_kernel<<<(n_w + kThreads - 1) / kThreads, kThreads, 0, stream>>>(part, grid, n_w,
+                                                                              gw);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -721,6 +757,13 @@ Dims make_dims(int B, int P, int copies, int Nd, int K, int S, int V, int H0, in
   return d;
 }
 
+// the shapes the kernel takes
+bool valid(int B, int K, int S, int V, int H0, int Hj, int R, int n_layers) {
+  return B > 0 && K >= 1 && K <= 64 && S >= 1 && S <= 128 && V >= 1 && V <= 128 && H0 >= 1 &&
+         H0 <= 128 && R >= 1 && R <= 128 && n_layers >= 1 &&
+         (n_layers == 1 || (Hj >= 1 && Hj <= 128));
+}
+
 }  // namespace
 
 // Dynamic shared memory of one block of the variant that runs at these
@@ -737,6 +780,23 @@ extern "C" int pp_message_bwd_grads_size(int S, int V, int H0, int Hj, int R, in
   return grad0_size(d) + (n_layers - 1) * gradj_size(d);
 }
 
+// The persistent grid of a launch at these shapes and dtype: the wrapper
+// sizes the fp32 scratch `part` of pp_message_bwd_launch as this many
+// blocks x pp_message_bwd_grads_size floats. < 0: minus a CUDA error.
+extern "C" int pp_message_bwd_blocks(int bf16, int B, int Nd, int K, int S, int V, int H0, int Hj,
+                                     int R, int n_layers) {
+  if (!valid(B, K, S, V, H0, Hj, R, n_layers) || Nd <= 0)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  const Dims d = make_dims(B, 1, 1, Nd, K, S, V, H0, Hj, R, n_layers);
+  switch (rows_for(d) * (bf16 ? -1 : 1)) {
+    case 32: return configure<float, 32>(d);
+    case 16: return configure<float, 16>(d);
+    case -32: return configure<__nv_bfloat16, 32>(d);
+    case -16: return configure<__nv_bfloat16, 16>(d);
+  }
+  return -static_cast<int>(cudaErrorInvalidValue);
+}
+
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
 // bf16 != 0 selects __nv_bfloat16 tables, terms, geometry and weights (else
 // float). Pointers (contiguous, current device): tab_s [B,P,S],
@@ -744,7 +804,9 @@ extern "C" int pp_message_bwd_grads_size(int S, int V, int H0, int Hj, int R, in
 // rterm [G,Nd,K,S], dirterm [G,Nd,K,3,H0], rbf [G,Nd,K,R], xdir [G,Nd,K,3],
 // wts (packed as for K2), ds [B,Nd,S] fp32, dv [B,Nd,V,3] fp32; outputs,
 // zeroed by the caller and accumulated into: d_tab_s [B,P,S],
-// d_tab_v [B,P,3,H0] (fp32), gw (pp_message_bwd_grads_size doubles).
+// d_tab_v [B,P,3,H0] (fp32), gw (pp_message_bwd_grads_size doubles);
+// scratch: part, `blocks` (= pp_message_bwd_blocks) x
+// pp_message_bwd_grads_size floats, each block's weight-gradient sums.
 // B = G * copies; 1 <= K <= 64; S, V, H0, Hj, R <= 128.
 extern "C" int pp_message_bwd_launch(int bf16, const void* tab_s, const void* tab_v,
                                      const int* idx, const float* mask, const void* rterm,
@@ -752,11 +814,10 @@ extern "C" int pp_message_bwd_launch(int bf16, const void* tab_s, const void* ta
                                      const void* wts, const float* ds, const float* dv, int B,
                                      int P, int G, int copies, int Nd, int K, int S, int V,
                                      int H0, int Hj, int R, int n_layers, float* d_tab_s,
-                                     float* d_tab_v, double* gw, void* stream) {
+                                     float* d_tab_v, double* gw, float* part, int blocks,
+                                     void* stream) {
   if (B <= 0 || Nd <= 0) return 0;
-  if (K < 1 || K > 64 || S < 1 || S > 128 || V < 1 || V > 128 || H0 < 1 || H0 > 128 ||
-      R < 1 || R > 128 || n_layers < 1 || (n_layers > 1 && (Hj < 1 || Hj > 128)) ||
-      G * copies != B)
+  if (!valid(B, K, S, V, H0, Hj, R, n_layers) || G * copies != B)
     return static_cast<int>(cudaErrorInvalidValue);
   const Dims d = make_dims(B, P, copies, Nd, K, S, V, H0, Hj, R, n_layers);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -764,7 +825,7 @@ extern "C" int pp_message_bwd_launch(int bf16, const void* tab_s, const void* ta
   if (rows == 0) return static_cast<int>(cudaErrorInvalidValue);
   auto go = [&](auto kern) {
     return kern(tab_s, tab_v, idx, mask, rterm, dirterm, rbf, xdir, wts, ds, dv, d, d_tab_s,
-                d_tab_v, gw, st);
+                d_tab_v, gw, part, blocks, st);
   };
   if (bf16)
     return rows == 32 ? go(launch<__nv_bfloat16, 32>) : go(launch<__nv_bfloat16, 16>);
