@@ -185,19 +185,108 @@ __device__ __forceinline__ void gemm(const float* A, int lda, int m, int kd, int
   }
 }
 
-// A block's weight-gradient sum: the chunk's fp32 sum x stored in the
-// block's own slice on its first chunk, added to it after.
-__device__ __forceinline__ void add_to(float* p, float x, bool first) { *p = first ? x : *p + x; }
+// The same product with a 4-row x 4-column register tile a thread, for
+// outputs S wide: per k one shared-memory load and four weights feed 16
+// multiply-adds, so a thread has 4x fewer weight loads in its dependent
+// chain than `gemm` (the weights come from the L2: they do not fit in the
+// L1 beside the shared memory).
+template <class WF, class Epi>
+__device__ __forceinline__ void gemm4(const float* A, int lda, int m, int kd, int n_out, WF wt,
+                                      Epi epi) {
+  const int groups = m / 4, tiles = groups * ((n_out + 3) / 4);
+  for (int task = threadIdx.x; task < tiles; task += kThreads) {
+    const int rg = task % groups, n0 = 4 * (task / groups);
+    const float* a = A + 4 * rg;
+    int nn[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) nn[j] = min(n0 + j, n_out - 1);  // loads stay in range
+    float c[4][4] = {};
+#pragma unroll 4
+    for (int k = 0; k < kd; ++k) {
+      const float4 av = *reinterpret_cast<const float4*>(a + k * lda);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float w = wt(k, nn[j]);
+        c[0][j] = fmaf(av.x, w, c[0][j]);
+        c[1][j] = fmaf(av.y, w, c[1][j]);
+        c[2][j] = fmaf(av.z, w, c[2][j]);
+        c[3][j] = fmaf(av.w, w, c[3][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (n0 + j < n_out) epi(4 * rg + i, n0 + j, c[i][j]);
+  }
+}
+
+// The same product for narrow outputs of a deep product (depth S, 16 or 17
+// columns): 4 x 4 tiles whose depth is split over the 8 lanes of a lane
+// octet (lane kq takes k = kq, kq + 8, ...); the octet's partial sums are
+// added with shuffles and its first lane runs the epilogue. Every thread
+// takes part, with 8x shorter chains than a thread a column.
+template <class WF, class Epi>
+__device__ __forceinline__ void gemm_sk(const float* A, int lda, int m, int kd, int n_out, WF wt,
+                                        Epi epi) {
+  const int groups = m / 4, tiles = groups * ((n_out + 3) / 4);
+  const int lane = threadIdx.x & 31, kq = lane & 7;
+  // t0 is the same across a warp, so every lane reaches the shuffles
+  for (int t0 = (threadIdx.x >> 5) * 4; t0 < tiles; t0 += kThreads / 8) {
+    const int task = t0 + (lane >> 3);
+    const bool on = task < tiles;
+    const int rg = on ? task % groups : 0, n0 = on ? 4 * (task / groups) : 0;
+    const float* a = A + 4 * rg;
+    int nn[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) nn[j] = min(n0 + j, n_out - 1);
+    float c[4][4] = {};
+    if (on) {
+#pragma unroll 4
+      for (int k = kq; k < kd; k += 8) {
+        const float4 av = *reinterpret_cast<const float4*>(a + k * lda);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float w = wt(k, nn[j]);
+          c[0][j] = fmaf(av.x, w, c[0][j]);
+          c[1][j] = fmaf(av.y, w, c[1][j]);
+          c[2][j] = fmaf(av.z, w, c[2][j]);
+          c[3][j] = fmaf(av.w, w, c[3][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int off = 4; off >= 1; off >>= 1)
+          c[i][j] += __shfl_xor_sync(0xffffffffu, c[i][j], off);
+    if (on && kq == 0)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n0 + j < n_out) epi(4 * rg + i, n0 + j, c[i][j]);
+  }
+}
+
+// A block's weight-gradient sums live in its own slice. `held` reads an
+// element's sum so far (0 before the block's first chunk); it is issued
+// before the chunk's sum is computed, so its latency hides behind that,
+// and the new sum goes back with a plain store.
+__device__ __forceinline__ float held(const float* p, bool first) { return first ? 0.0f : *p; }
 
 // gw[x * ny + y] += sum_{r < m} A[x * lda + r] * B[y * ldb + r]: a weight
 // gradient over the chunk's rows (m a multiple of 4), summed in fp32 into the
-// block's slice (`add_to`).
+// block's slice (`held`).
 __device__ __forceinline__ void dot_t(const float* A, int lda, int nx, const float* B, int ldb,
                                       int ny, int m, float* gw, bool first) {
   for (int task = threadIdx.x; task < nx * ny; task += kThreads) {
     const int y = task % ny, x = task / ny;
     const float* a = A + x * lda;
     const float* b = B + y * ldb;
+    const float sum = held(gw + task, first);
     float acc = 0.0f;
 #pragma unroll 4
     for (int r = 0; r < m; r += 4) {
@@ -208,7 +297,60 @@ __device__ __forceinline__ void dot_t(const float* A, int lda, int nx, const flo
       acc = fmaf(av.z, bv.z, acc);
       acc = fmaf(av.w, bv.w, acc);
     }
-    add_to(gw + task, acc, first);
+    gw[task] = sum + acc;
+  }
+}
+
+// `dot_t` with a 4 x 4 register tile of (x, y) a thread, for gradients with
+// an S-wide side: 8 shared-memory loads feed 64 multiply-adds. Each thread
+// walks the row groups from its own offset (ty mod groups), so the eight
+// threads of a quarter warp load from distinct banks; each element's sum
+// still runs in a fixed order.
+__device__ __forceinline__ void dot4(const float* A, int lda, int nx, const float* B, int ldb,
+                                     int ny, int m, float* gw, bool first) {
+  const int xg = (nx + 3) / 4, yg = (ny + 3) / 4, groups = m / 4;
+  for (int task = threadIdx.x; task < xg * yg; task += kThreads) {
+    const int ty = task % yg, tx = task / yg;
+    const float* a[4];
+    const float* b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] = A + min(4 * tx + i, nx - 1) * lda;  // loads stay in range
+      b[i] = B + min(4 * ty + i, ny - 1) * ldb;
+    }
+    float sum[4][4], c[4][4] = {};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        sum[i][j] = 4 * tx + i < nx && 4 * ty + j < ny
+                        ? held(gw + (4 * tx + i) * ny + 4 * ty + j, first)
+                        : 0.0f;
+    int g = ty % groups;
+    for (int step = 0; step < groups; ++step) {
+      float4 av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        av[i] = *reinterpret_cast<const float4*>(a[i] + 4 * g);
+        bv[i] = *reinterpret_cast<const float4*>(b[i] + 4 * g);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          c[i][j] = fmaf(av[i].x, bv[j].x, c[i][j]);
+          c[i][j] = fmaf(av[i].y, bv[j].y, c[i][j]);
+          c[i][j] = fmaf(av[i].z, bv[j].z, c[i][j]);
+          c[i][j] = fmaf(av[i].w, bv[j].w, c[i][j]);
+        }
+      if (++g == groups) g = 0;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (4 * tx + i < nx && 4 * ty + j < ny)
+          gw[(4 * tx + i) * ny + 4 * ty + j] = sum[i][j] + c[i][j];
   }
 }
 
@@ -216,9 +358,10 @@ __device__ __forceinline__ void dot_t(const float* A, int lda, int nx, const flo
 template <int kR>
 __device__ __forceinline__ void colsum(const float* B, int ldb, int ny, float* gw, bool first) {
   for (int y = threadIdx.x; y < ny; y += kThreads) {
+    const float sum = held(gw + y, first);
     float acc = 0.0f;
     for (int r = 0; r < kR; ++r) acc += B[y * ldb + r];
-    add_to(gw + y, acc, first);
+    gw[y] = sum + acc;
   }
 }
 
@@ -438,7 +581,7 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
     {
       float* Z0 = Zl(0);
       const T* W = wts + o0.w1_sh;
-      gemm(sm.SH, kLd, kR, H0, S, [&](int k, int n) { return to_f(W[k * S + n]); },
+      gemm4(sm.SH, kLd, kR, H0, S, [&](int k, int n) { return to_f(W[k * S + n]); },
            [&](int r, int n, float acc) {
              const float z = rnd<T>(sm.F[n * kLd + r] + rnd<T>(acc));
              Z0[n * kLd + r] = z;
@@ -452,7 +595,7 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
       const T* Wg = wts + o0.wg;
       const T* Bg = wts + o0.bg;
       const T* Wu = wts + o0.wu;
-      gemm(sm.F, kLd, kR, S, V, [&](int k, int n) { return to_f(Wg[k * V + n]); },
+      gemm_sk(sm.F, kLd, kR, S, V, [&](int k, int n) { return to_f(Wg[k * V + n]); },
            [&](int r, int n, float acc) {
              G0[n * kLd + r] = rnd<T>(sigmoid_f(rnd<T>(rnd<T>(acc) + to_f(Bg[n]))));
            });
@@ -480,14 +623,14 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
       channel_norms<T, kR>(VHc, sm.SH, Hj);
       {
         const T* W = wts + o.w1f;
-        gemm(sm.F, kLd, kR, S, S, [&](int k, int n) { return to_f(W[k * S + n]); },
+        gemm4(sm.F, kLd, kR, S, S, [&](int k, int n) { return to_f(W[k * S + n]); },
              [&](int r, int n, float acc) { Zc[n * kLd + r] = rnd<T>(acc); });
       }
       __syncthreads();
       {
         const T* W = wts + o.w1sh;
         const T* B1 = wts + o.b1;
-        gemm(sm.SH, kLd, kR, Hj, S, [&](int k, int n) { return to_f(W[k * S + n]); },
+        gemm4(sm.SH, kLd, kR, Hj, S, [&](int k, int n) { return to_f(W[k * S + n]); },
              [&](int r, int n, float acc) {
                Zc[n * kLd + r] =
                    rnd<T>(rnd<T>(Zc[n * kLd + r] + rnd<T>(acc)) + to_f(B1[n]));
@@ -506,7 +649,7 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
         const T* Wg = wts + o.wg;
         const T* Bg = wts + o.bg;
         const T* Wu = wts + o.wu;
-        gemm(sm.F, kLd, kR, S, V, [&](int k, int n) { return to_f(Wg[k * V + n]); },
+        gemm_sk(sm.F, kLd, kR, S, V, [&](int k, int n) { return to_f(Wg[k * V + n]); },
              [&](int r, int n, float acc) {
                Gc[n * kLd + r] = rnd<T>(sigmoid_f(rnd<T>(rnd<T>(acc) + to_f(Bg[n]))));
              });
@@ -577,10 +720,10 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
       __syncthreads();
 
       // d_wg, d_bg, d_wu; dfeats += dzg @ wg^T; dvh = dvu @ wu^T
-      dot_t(sm.F, kLd, S, sm.DG, kLd, V, kR, gwg, first);
+      dot4(sm.F, kLd, S, sm.DG, kLd, V, kR, gwg, first);
       colsum<kR>(sm.DG, kLd, V, gbg, first);
       dot_t(VHc, kLd3, Hl, sm.DV, kLd3, V, 3 * kR, gwu, first);
-      gemm(sm.DG, kLd, kR, V, S, [&](int k, int n) { return to_f(Wg[n * V + k]); },
+      gemm4(sm.DG, kLd, kR, V, S, [&](int k, int n) { return to_f(Wg[n * V + k]); },
            [&](int r, int n, float acc) {
              sm.DF[n * kLd + r] = rnd<T>(sm.DF[n * kLd + r] + rnd<T>(acc));
            });
@@ -604,11 +747,11 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
       // d_b1, d_w1f (or d_w1d), d_w1sh; dsh = dz @ w1sh^T
       colsum<kR>(sm.DZ, kLd, S, gb1, first);
       if (l > 0)
-        dot_t(sm.F, kLd, S, sm.DZ, kLd, S, kR, gw + gradj_offsets(d, l).w1f, first);
+        dot4(sm.F, kLd, S, sm.DZ, kLd, S, kR, gw + gradj_offsets(d, l).w1f, first);
       else
-        dot_t(sm.RB, kLd, d.R, sm.DZ, kLd, S, kR, gw + q0.w1d, first);
-      dot_t(sm.SH, kLd, Hl, sm.DZ, kLd, S, kR, gw1sh, first);
-      gemm(sm.DZ, kLd, kR, S, Hl, [&](int k, int n) { return to_f(W1sh[n * S + k]); },
+        dot4(sm.RB, kLd, d.R, sm.DZ, kLd, S, kR, gw + q0.w1d, first);
+      dot4(sm.SH, kLd, Hl, sm.DZ, kLd, S, kR, gw1sh, first);
+      gemm_sk(sm.DZ, kLd, kR, S, Hl, [&](int k, int n) { return to_f(W1sh[n * S + k]); },
            [&](int r, int n, float acc) { sm.DR[n * kLd + r] = rnd<T>(acc); });
       __syncthreads();
 
@@ -641,16 +784,17 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
         dot_t(sm.VT, kLd3, V, sm.DH, kLd3, Hj, 3 * kR, gw + gradj_offsets(d, l).wh, first);
         gemm(sm.DH, kLd3, 3 * kR, Hj, V, [&](int k, int n) { return to_f(Wh[n * Hj + k]); },
              [&](int row, int n, float acc) { sm.DV[n * kLd3 + row] = rnd<T>(acc); });
-        gemm(sm.DZ, kLd, kR, S, S, [&](int k, int n) { return to_f(W1f[n * S + k]); },
+        gemm4(sm.DZ, kLd, kR, S, S, [&](int k, int n) { return to_f(W1f[n * S + k]); },
              [&](int r, int n, float acc) { sm.DF[n * kLd + r] = rnd<T>(acc); });
       } else {
         // d_wh0 from dirterm = x_dir (x) wh0; node-table scatter
         for (int h = tid; h < H0; h += kThreads) {
+          const float sum = held(gw + q0.wh0 + h, first);
           float acc = 0.0f;
           for (int c = 0; c < 3; ++c)
             for (int r = 0; r < kR; ++r)
               acc += sm.XD[c * kR + r] * sm.DH[h * kLd3 + c * kR + r];
-          add_to(gw + q0.wh0 + h, acc, first);
+          gw[q0.wh0 + h] = sum + acc;
         }
         for (int i = tid; i < kR * S; i += kThreads) {
           const int r = i / S, s = i - r * S;
