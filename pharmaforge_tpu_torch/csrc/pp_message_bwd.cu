@@ -24,28 +24,45 @@
 // sh > 1e-4, else 0, with sh the fp32 norm. With T = float every rounding
 // is the identity.
 //
-// Design. One block per (destination tile, batch row), as K2: the tile's
-// valid slots (mask set, index in range) are compacted with a block prefix
-// sum and processed in chunks of kR = 32 edge rows. For a chunk the block
-// recomputes the three-GVP chain and keeps every stage it needs (vh, z,
-// gate and vu of each GVP; about 240 floats a row a GVP) in shared memory as
-// [channel][row] fp32 columns, then walks the GVPs backwards with its
-// cotangent columns beside them (~190 KB of shared memory at S=128, V=16,
-// three GVPs). Products run on the fp32 FMA units; weights are read from
-// global memory (they are small and stay in L1/L2), transposed in the read
-// where the backward needs W^T, so no transposed or block-diagonal copies
-// exist. A source atom is the neighbour of many destinations and may occur
+// Design. Persistent blocks of 256 threads, one an SM (the grid is blocks
+// per SM x SMs, queried once and cached). A work item is a batch row and a
+// tile of min(64, 256 / K) destinations. The call's edge rows are the valid
+// slots (mask set, index in range) of all items in item order; a first
+// kernel counts each item's, and block x takes an equal share of the rows
+// (rows [x N / grid, (x + 1) N / grid)), so the blocks' work differs by at
+// most a row whatever the pockets' density. A block compacts its items'
+// valid slots with a block prefix sum into a ring of rows (table row, slot,
+// output row, mask) and each chunk takes the next kR rows across item
+// boundaries, so only its last chunk is partial. No sum crosses a chunk
+// edge: a row reads its destination's cotangent and scatters to its
+// source. kR is 32 rows, or 16 where the chain's stored stages do not fit
+// at 32 (five or more GVPs at S=128, V=16): for a chunk the block recomputes
+// the chain and keeps every stage it needs (vh, z, gate and vu of each GVP;
+// about 240 floats a row a GVP) in shared memory as [channel][row] fp32
+// columns, then walks the GVPs backwards with its cotangent columns beside
+// them (~196 KB at three GVPs and 32 rows).
+//
+// Products run on the fp32 FMA units. The weights are read from global
+// memory, transposed in the read where the backward needs W^T: the chain's
+// 187 KB of fp32 weights do not fit beside the stages, so they come from
+// the L2, and the latency of those reads is what a chunk waits on. So a
+// thread of an S-wide product holds a 4 x 4 register tile (the S x S ones
+// read their weights 16 bytes at a time), the 128-deep 16-wide products
+// split their depth over the 8 lanes of a lane octet and add the parts
+// with shuffles, and the S-wide weight gradients use 4 x 4 tiles too.
+//
+// Sums. A source atom is the neighbour of many destinations and may occur
 // twice in one list, so the node-table gradients are fp32 atomicAdd into
-// [B,P,.]; each weight gradient is reduced over the chunk's rows in an fp32
-// register and added to an fp64 buffer with one atomicAdd per element per
-// chunk. At the training shape a weight gradient sums ~630 chunk sums whose
-// running total wanders far above its end value: added in fp32, in atomic
-// order, they moved some elements by up to the whole fp32 tolerance; in
-// fp64 the result, rounded to fp32, came out the same in every run, closer
-// to an fp64 reference than fp32 autograd comes (PERF.md, Findings). The fp32
-// node-table sums (~16 rows each) still vary in their last bits from run
-// to run. Masked slots, out-of-range indices and the padding rows of the
-// last chunk contribute nothing.
+// [B,P,.] (~16 rows each; their last bits vary from run to run). Each
+// weight gradient is summed per block: the block adds every chunk's fp32
+// sum into its own slice of a scratch buffer [grid, n_w] with plain loads
+// and stores (132 x 48,977 floats at the training shape, which stay in the
+// L2), and sum_slices_kernel adds the slices in block order in fp64. No
+// atomic touches the weight gradients, so they are the same in every run;
+// summed in fp32 atomics over ~630 chunk sums instead, some elements moved
+// by up to the whole fp32 tolerance from one run to the next (PERF.md).
+// Masked slots, out-of-range indices and the padding rows of the last
+// chunk contribute nothing.
 //
 // Bound: at the training shape (B=32, P=Nd=256, K=16, S=128, V=16, three
 // GVPs) the recompute plus the backward are ~145 k multiply-adds per valid
@@ -218,6 +235,63 @@ __device__ __forceinline__ void gemm4(const float* A, int lda, int m, int kd, in
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         if (n0 + j < n_out) epi(4 * rg + i, n0 + j, c[i][j]);
+  }
+}
+
+// 4 consecutive T weights as fp32 (p 16-byte aligned for float, 8 for bf16)
+template <typename T> __device__ __forceinline__ float4 load4(const T* p);
+template <> __device__ __forceinline__ float4 load4<float>(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+template <> __device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// `gemm4` for the S x S products, W read 16 (bf16: 8) bytes at a time:
+// C[r][n] = sum_k A[k][r] * W[k * ldw + n] or, kTrans, W[n * ldw + k].
+// kd, n_out and ldw multiples of 4 (`s4` in the kernel, else `gemm4`).
+template <bool kTrans, typename T, class Epi>
+__device__ __forceinline__ void gemm4v(const float* A, int lda, int m, int kd, int n_out,
+                                       const T* __restrict__ W, int ldw, Epi epi) {
+  const int groups = m / 4, tiles = groups * (n_out / 4);
+  for (int task = threadIdx.x; task < tiles; task += kThreads) {
+    const int rg = task % groups, n0 = 4 * (task / groups);
+    const float* a = A + 4 * rg;
+    float c[4][4] = {};
+#pragma unroll 4
+    for (int k = 0; k < kd; k += 4) {
+      float4 w[4], av[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        w[q] = kTrans ? load4(W + (n0 + q) * ldw + k) : load4(W + (k + q) * ldw + n0);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) av[q] = *reinterpret_cast<const float4*>(a + (k + q) * lda);
+      // wk[q][j]: the weight of depth k + q, column n0 + j
+      const float wk[4][4] = {
+          {kTrans ? w[0].x : w[0].x, kTrans ? w[1].x : w[0].y, kTrans ? w[2].x : w[0].z,
+           kTrans ? w[3].x : w[0].w},
+          {kTrans ? w[0].y : w[1].x, kTrans ? w[1].y : w[1].y, kTrans ? w[2].y : w[1].z,
+           kTrans ? w[3].y : w[1].w},
+          {kTrans ? w[0].z : w[2].x, kTrans ? w[1].z : w[2].y, kTrans ? w[2].z : w[2].z,
+           kTrans ? w[3].z : w[2].w},
+          {kTrans ? w[0].w : w[3].x, kTrans ? w[1].w : w[3].y, kTrans ? w[2].w : w[3].z,
+           kTrans ? w[3].w : w[3].w}};
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          c[0][j] = fmaf(av[q].x, wk[q][j], c[0][j]);
+          c[1][j] = fmaf(av[q].y, wk[q][j], c[1][j]);
+          c[2][j] = fmaf(av[q].z, wk[q][j], c[2][j]);
+          c[3][j] = fmaf(av[q].w, wk[q][j], c[3][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) epi(4 * rg + i, n0 + j, c[i][j]);
   }
 }
 
@@ -426,7 +500,7 @@ __host__ __device__ inline size_t smem_floats(const Dims& d, int kR) {
   return d.n_layers * layer_floats(d, kR) + 3 * static_cast<size_t>(d.S) * kLd +
          static_cast<size_t>(Hm) * kLd * 2 + static_cast<size_t>(d.V) * kLd3 * 2 +
          static_cast<size_t>(Hm) * kLd3 + static_cast<size_t>(d.V) * kLd +
-         static_cast<size_t>(d.R) * kLd + 7 * kR + 4 * kRing + 16;
+         static_cast<size_t>(d.R) * kLd + 7 * kR + 4 * kRing + 32;
 }
 
 // The chunk height that fits: 32 rows, else 16 (0 if neither fits).
@@ -475,7 +549,8 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
                       const T* __restrict__ rbf, const T* __restrict__ xdir,
                       const T* __restrict__ wts, const float* __restrict__ ds,
                       const float* __restrict__ dv, Dims d, float* __restrict__ d_tab_s,
-                      float* __restrict__ d_tab_v, float* __restrict__ part) {
+                      float* __restrict__ d_tab_v, const int* __restrict__ counts,
+                      float* __restrict__ part) {
   extern __shared__ float4 smem4[];
   constexpr int kLd = ld1(kR), kLd3 = ld3(kR);
   const Smem sm = carve(reinterpret_cast<float*>(smem4), d, kR);
@@ -483,11 +558,48 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
   const int Hm = hmax(d);
 
   const int tid = threadIdx.x;
+  // the S x S products read their weights 4 at a time (the packed weights
+  // start every matrix at a multiple of 8 elements)
+  const bool s4 = S % 4 == 0;
 
-  // Append work item `item`'s valid slots (mask set, index in range) to the
-  // ring at `tail`, in slot order; returns how many it appended.
-  auto compact = [&](int item, int tail) -> int {
-    const int b = item % d.B, tile = item / d.B;
+  // ---- this block's share of the call's edge rows --------------------------
+  // The valid slots (mask set, index in range) of all work items, in item
+  // order, are the call's rows; block x takes rows [lo, hi), an equal share.
+  // From the items' counts (count_kernel) it finds the item holding row lo
+  // (`next`) and that item's first row (`base`).
+  int total = 0;
+  for (int i0 = 0; i0 < d.items; i0 += kThreads) {
+    block_scan(i0 + tid < d.items ? counts[i0 + tid] : 0, sm.WS, sm.WS + 8);
+    total += sm.WS[8];
+    __syncthreads();
+  }
+  const int lo = static_cast<int>(static_cast<long long>(total) * blockIdx.x / gridDim.x);
+  const int hi = static_cast<int>(static_cast<long long>(total) * (blockIdx.x + 1) / gridDim.x);
+  if (tid == 0) {
+    sm.WS[16] = d.items;  // an empty share: no item, no row before hi
+    sm.WS[17] = total;
+  }
+  __syncthreads();
+  int base = 0;
+  for (int i0 = 0; i0 < d.items && lo < hi; i0 += kThreads) {
+    const int i = i0 + tid, c = i < d.items ? counts[i] : 0;
+    const int start = base + block_scan(c, sm.WS, sm.WS + 8);
+    if (c > 0 && start <= lo && lo < start + c) {
+      sm.WS[16] = i;
+      sm.WS[17] = start;
+    }
+    base += sm.WS[8];
+    __syncthreads();
+    if (sm.WS[16] < d.items) break;
+  }
+  int next = sm.WS[16];
+  base = sm.WS[17];
+
+  // Append the valid slots of work item `item`, whose first row is `base`,
+  // that lie in [lo, hi) to the ring at `tail`, in slot order; returns how
+  // many valid slots the item has.
+  auto compact = [&](int item, int tail, int base) -> int {
+    const int b = item / d.tiles, tile = item - b * d.tiles;
     const int g = b / d.copies, n0 = tile * TN;
     const int e0 = (g * d.Nd + n0) * K;  // first slot
     const int nl = tid / K;
@@ -500,8 +612,8 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
     }
     const int pos = block_scan(flag, sm.WS, sm.WS + 8);
     const int n_valid = sm.WS[8];
-    if (flag) {
-      const int q = (tail + pos) & (kRing - 1);
+    if (flag && base + pos >= lo && base + pos < hi) {
+      const int q = (tail + base + pos - max(lo, base)) & (kRing - 1);
       sm.ML[q] = m;
       sm.TR[q] = b * d.P + j;
       sm.EL[q] = e0 + tid;
@@ -520,18 +632,18 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
   auto Gl = [&](int l) { return sm.G + l * V * kLd; };
   auto VUl = [&](int l) { return sm.VU + l * V * kLd3; };
 
-  // The block's work items (item = blockIdx.x + i * gridDim.x, batch row
-  // fastest) stream through the ring: each chunk takes the next kR rows,
-  // across item boundaries, so only the block's last chunk is partial.
   // this block's slice of the weight-gradient sums (split_weights order)
   const int n_w = grad0_size(d) + (L - 1) * gradj_size(d);
   float* const gw = part + static_cast<size_t>(blockIdx.x) * n_w;
-  int head = 0, tail = 0, next = blockIdx.x;
+  // The block's items stream through the ring: each chunk takes the next kR
+  // rows, across item boundaries, so only the block's last chunk is partial.
+  int head = 0, tail = 0;
   bool first = true;
   for (;; first = false) {
-    while (tail - head < kR && next < d.items) {
-      tail += compact(next, tail);
-      next += gridDim.x;
+    while (tail - head < kR && base < hi) {
+      const int n_valid = compact(next++, tail, base);
+      tail += min(hi, base + n_valid) - max(lo, base);
+      base += n_valid;
     }
     const int nr = min(kR, tail - head);
     if (nr == 0) break;
@@ -623,8 +735,11 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
       channel_norms<T, kR>(VHc, sm.SH, Hj);
       {
         const T* W = wts + o.w1f;
-        gemm4(sm.F, kLd, kR, S, S, [&](int k, int n) { return to_f(W[k * S + n]); },
-             [&](int r, int n, float acc) { Zc[n * kLd + r] = rnd<T>(acc); });
+        const auto epi = [&](int r, int n, float acc) { Zc[n * kLd + r] = rnd<T>(acc); };
+        if (s4)
+          gemm4v<false>(sm.F, kLd, kR, S, S, W, S, epi);
+        else
+          gemm4(sm.F, kLd, kR, S, S, [&](int k, int n) { return to_f(W[k * S + n]); }, epi);
       }
       __syncthreads();
       {
@@ -784,8 +899,11 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
         dot_t(sm.VT, kLd3, V, sm.DH, kLd3, Hj, 3 * kR, gw + gradj_offsets(d, l).wh, first);
         gemm(sm.DH, kLd3, 3 * kR, Hj, V, [&](int k, int n) { return to_f(Wh[n * Hj + k]); },
              [&](int row, int n, float acc) { sm.DV[n * kLd3 + row] = rnd<T>(acc); });
-        gemm4(sm.DZ, kLd, kR, S, S, [&](int k, int n) { return to_f(W1f[n * S + k]); },
-             [&](int r, int n, float acc) { sm.DF[n * kLd + r] = rnd<T>(acc); });
+        const auto epi = [&](int r, int n, float acc) { sm.DF[n * kLd + r] = rnd<T>(acc); };
+        if (s4)
+          gemm4v<true>(sm.DZ, kLd, kR, S, S, W1f, S, epi);
+        else
+          gemm4(sm.DZ, kLd, kR, S, S, [&](int k, int n) { return to_f(W1f[n * S + k]); }, epi);
       } else {
         // d_wh0 from dirterm = x_dir (x) wh0; node-table scatter
         for (int h = tid; h < H0; h += kThreads) {
@@ -815,6 +933,27 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
   // a block that got no rows still owns its slice
   if (first)
     for (int i = tid; i < n_w; i += kThreads) gw[i] = 0.0f;
+}
+
+// counts[item] = the valid slots (mask set, index in range) of work item
+// `item` = b * tiles + tile; a warp an item
+__global__ void __launch_bounds__(kThreads)
+count_kernel(const int* __restrict__ idx, const float* __restrict__ mask, Dims d,
+             int* __restrict__ counts) {
+  const int item = blockIdx.x * (kThreads / 32) + threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (item >= d.items) return;  // the whole warp
+  const int b = item / d.tiles, tile = item - b * d.tiles;
+  const int n0 = tile * d.tile_n;
+  const int e0 = ((b / d.copies) * d.Nd + n0) * d.K;
+  const int slots = min(d.tile_n, d.Nd - n0) * d.K;
+  int c = 0;
+  for (int s = lane; s < slots; s += 32) {
+    const int j = idx[e0 + s];
+    c += mask[e0 + s] != 0.0f && j >= 0 && j < d.P;
+  }
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1) c += __shfl_xor_sync(0xffffffffu, c, off);
+  if (lane == 0) counts[item] = c;
 }
 
 // gw[i] += the blocks' slices summed in fp64, in block order
@@ -864,18 +1003,25 @@ template <typename T, int kR>
 int launch(const void* tab_s, const void* tab_v, const int* idx, const float* mask,
            const void* rterm, const void* dirterm, const void* rbf, const void* xdir,
            const void* wts, const float* ds, const float* dv, const Dims& d, float* d_tab_s,
-           float* d_tab_v, double* gw, float* part, int blocks, cudaStream_t stream) {
+           float* d_tab_v, double* gw, float* scratch, long long scratch_floats,
+           cudaStream_t stream) {
   const int grid = configure<T, kR>(d);
   if (grid < 0) return -grid;
-  if (blocks != grid) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_w = grad0_size(d) + (d.n_layers - 1) * gradj_size(d);
+  float* const part = scratch;
+  int* const counts = reinterpret_cast<int*>(scratch + static_cast<size_t>(grid) * n_w);
+  if (static_cast<long long>(grid) * n_w + d.items > scratch_floats)
+    return static_cast<int>(cudaErrorInvalidValue);
+  count_kernel<<<(d.items + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, stream>>>(
+      idx, mask, d, counts);
   const size_t smem = smem_floats(d, kR) * sizeof(float);
   pp_message_bwd_kernel<T, kR><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(tab_s), static_cast<const T*>(tab_v), idx, mask,
       static_cast<const T*>(rterm), static_cast<const T*>(dirterm), static_cast<const T*>(rbf),
-      static_cast<const T*>(xdir), static_cast<const T*>(wts), ds, dv, d, d_tab_s, d_tab_v, part);
-  cudaError_t e = cudaGetLastError();
+      static_cast<const T*>(xdir), static_cast<const T*>(wts), ds, dv, d, d_tab_s, d_tab_v, counts,
+      part);
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_w = grad0_size(d) + (d.n_layers - 1) * gradj_size(d);
   sum_slices_kernel<<<(n_w + kThreads - 1) / kThreads, kThreads, 0, stream>>>(part, grid, n_w,
                                                                               gw);
   return static_cast<int>(cudaGetLastError());
@@ -924,21 +1070,25 @@ extern "C" int pp_message_bwd_grads_size(int S, int V, int H0, int Hj, int R, in
   return grad0_size(d) + (n_layers - 1) * gradj_size(d);
 }
 
-// The persistent grid of a launch at these shapes and dtype: the wrapper
-// sizes the fp32 scratch `part` of pp_message_bwd_launch as this many
-// blocks x pp_message_bwd_grads_size floats. < 0: minus a CUDA error.
-extern "C" int pp_message_bwd_blocks(int bf16, int B, int Nd, int K, int S, int V, int H0, int Hj,
-                                     int R, int n_layers) {
+// The scratch of a launch at these shapes and dtype, in 4-byte words: each
+// block's fp32 slice of the weight-gradient sums (the persistent grid x
+// pp_message_bwd_grads_size) and the work items' int counts. < 0: minus a
+// CUDA error.
+extern "C" long long pp_message_bwd_scratch_floats(int bf16, int B, int Nd, int K, int S, int V,
+                                                   int H0, int Hj, int R, int n_layers) {
   if (!valid(B, K, S, V, H0, Hj, R, n_layers) || Nd <= 0)
     return -static_cast<int>(cudaErrorInvalidValue);
   const Dims d = make_dims(B, 1, 1, Nd, K, S, V, H0, Hj, R, n_layers);
+  int grid = -static_cast<int>(cudaErrorInvalidValue);
   switch (rows_for(d) * (bf16 ? -1 : 1)) {
-    case 32: return configure<float, 32>(d);
-    case 16: return configure<float, 16>(d);
-    case -32: return configure<__nv_bfloat16, 32>(d);
-    case -16: return configure<__nv_bfloat16, 16>(d);
+    case 32: grid = configure<float, 32>(d); break;
+    case 16: grid = configure<float, 16>(d); break;
+    case -32: grid = configure<__nv_bfloat16, 32>(d); break;
+    case -16: grid = configure<__nv_bfloat16, 16>(d); break;
   }
-  return -static_cast<int>(cudaErrorInvalidValue);
+  if (grid < 0) return grid;
+  return static_cast<long long>(grid) * (grad0_size(d) + (n_layers - 1) * gradj_size(d)) +
+         d.items;
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
@@ -949,8 +1099,7 @@ extern "C" int pp_message_bwd_blocks(int bf16, int B, int Nd, int K, int S, int 
 // wts (packed as for K2), ds [B,Nd,S] fp32, dv [B,Nd,V,3] fp32; outputs,
 // zeroed by the caller and accumulated into: d_tab_s [B,P,S],
 // d_tab_v [B,P,3,H0] (fp32), gw (pp_message_bwd_grads_size doubles);
-// scratch: part, `blocks` (= pp_message_bwd_blocks) x
-// pp_message_bwd_grads_size floats, each block's weight-gradient sums.
+// scratch: pp_message_bwd_scratch_floats words (scratch_floats of them).
 // B = G * copies; 1 <= K <= 64; S, V, H0, Hj, R <= 128.
 extern "C" int pp_message_bwd_launch(int bf16, const void* tab_s, const void* tab_v,
                                      const int* idx, const float* mask, const void* rterm,
@@ -958,8 +1107,8 @@ extern "C" int pp_message_bwd_launch(int bf16, const void* tab_s, const void* ta
                                      const void* wts, const float* ds, const float* dv, int B,
                                      int P, int G, int copies, int Nd, int K, int S, int V,
                                      int H0, int Hj, int R, int n_layers, float* d_tab_s,
-                                     float* d_tab_v, double* gw, float* part, int blocks,
-                                     void* stream) {
+                                     float* d_tab_v, double* gw, float* scratch,
+                                     long long scratch_floats, void* stream) {
   if (B <= 0 || Nd <= 0) return 0;
   if (!valid(B, K, S, V, H0, Hj, R, n_layers) || G * copies != B)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -969,7 +1118,7 @@ extern "C" int pp_message_bwd_launch(int bf16, const void* tab_s, const void* ta
   if (rows == 0) return static_cast<int>(cudaErrorInvalidValue);
   auto go = [&](auto kern) {
     return kern(tab_s, tab_v, idx, mask, rterm, dirterm, rbf, xdir, wts, ds, dv, d, d_tab_s,
-                d_tab_v, gw, part, blocks, st);
+                d_tab_v, gw, scratch, scratch_floats, st);
   };
   if (bf16)
     return rows == 32 ? go(launch<__nv_bfloat16, 32>) : go(launch<__nv_bfloat16, 16>);

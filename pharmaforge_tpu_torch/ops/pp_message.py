@@ -206,10 +206,10 @@ def _bwd_launcher():
     fn = lib.pp_message_bwd_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
                    + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.pp_message_bwd_blocks.argtypes = [ctypes.c_int] * 10
-    lib.pp_message_bwd_blocks.restype = ctypes.c_int
+    lib.pp_message_bwd_scratch_floats.argtypes = [ctypes.c_int] * 10
+    lib.pp_message_bwd_scratch_floats.restype = ctypes.c_longlong
     lib.pp_message_bwd_smem_bytes.argtypes = [ctypes.c_int] * 6
     lib.pp_message_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.pp_message_bwd_grads_size.argtypes = [ctypes.c_int] * 6
@@ -311,17 +311,18 @@ def _launch_fwd(d: _Dims, tab_s, tab_v, idx, mask, rterm, dirterm,
 
 
 @functools.cache
-def _bwd_blocks(dev: torch.device, d: _Dims) -> int:
-    """K3's persistent grid at these shapes (blocks per SM x SMs, at most
-    one block a work item), queried once per device and shape."""
+def _bwd_scratch(dev: torch.device, d: _Dims) -> int:
+    """4-byte words of K3's scratch at these shapes (each block's fp32
+    weight-gradient slice, the work items' counts), queried once per device
+    and shape."""
     with torch.cuda.device(dev):
-        blocks = _bwd_launcher().pp_message_bwd_blocks(
+        words = _bwd_launcher().pp_message_bwd_scratch_floats(
             int(d.dt == torch.bfloat16), d.b, d.nd, d.k, d.s, d.v, d.h0,
             d.hj, d.r, d.n_layers)
-    if blocks <= 0:
+    if words <= 0:
         raise RuntimeError(f"pp_message_bwd kernel setup failed: CUDA error "
-                           f"{-blocks}")
-    return blocks
+                           f"{-words}")
+    return words
 
 
 def _launch_bwd(d: _Dims, saved: tuple, ds: torch.Tensor, dv: torch.Tensor
@@ -330,7 +331,7 @@ def _launch_bwd(d: _Dims, saved: tuple, ds: torch.Tensor, dv: torch.Tensor
     dv [B,Nd,V,3]: (d_tab_s [B,P,S] and d_tab_v [B,P,3,H0] fp32, the flat
     weight gradients in `split_weights` order, summed in fp64). Each block
     of the kernel sums its weight gradients into its own fp32 slice of a
-    scratch buffer; a second kernel adds the slices in block order."""
+    scratch buffer; another kernel adds the slices in block order."""
     tab_s, tab_v, idx, mask, rterm, dirterm, rbf, xdir, packed = saved
     lib = _bwd_launcher()
     _check(lib.pp_message_bwd_smem_bytes(d.s, d.v, d.h0, d.hj, d.r,
@@ -350,8 +351,8 @@ def _launch_bwd(d: _Dims, saved: tuple, ds: torch.Tensor, dv: torch.Tensor
     d_w = torch.zeros(n_w, dtype=torch.float64, device=dev)
     if d.b * d.nd == 0:
         return d_tab_s, d_tab_v, d_w
-    blocks = _bwd_blocks(dev, d)
-    part = torch.empty(blocks * n_w, dtype=torch.float32, device=dev)
+    words = _bwd_scratch(dev, d)
+    scratch = torch.empty(words, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.pp_message_bwd_launch(
             int(d.dt == torch.bfloat16), tab_s.data_ptr(), tab_v.data_ptr(),
@@ -360,7 +361,7 @@ def _launch_bwd(d: _Dims, saved: tuple, ds: torch.Tensor, dv: torch.Tensor
             packed.data_ptr(), ds.data_ptr(), dv.data_ptr(), d.b, d.p, d.g,
             d.copies, d.nd, d.k, d.s, d.v, d.h0, d.hj, d.r, d.n_layers,
             d_tab_s.data_ptr(), d_tab_v.data_ptr(), d_w.data_ptr(),
-            part.data_ptr(), blocks, _stream(dev))
+            scratch.data_ptr(), words, _stream(dev))
     if err != 0:
         raise RuntimeError(f"pp_message_bwd kernel launch failed: CUDA "
                            f"error {err}")
