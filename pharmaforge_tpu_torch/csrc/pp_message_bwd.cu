@@ -658,6 +658,7 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
     }
     head += nr;
     __syncthreads();
+#pragma unroll 4
     for (int i = tid; i < kR * S; i += kThreads) {
       const int r = i / S, s = i - r * S;
       const int jr = sm.JR[r];
@@ -666,6 +667,7 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
                                   : 0.0f;
     }
     float* VH0 = VHl(0);
+#pragma unroll 4
     for (int i = tid; i < kR * w3; i += kThreads) {
       const int r = i / w3, ch = i - r * w3;  // ch = plane * H0 + h
       const int c = ch / H0, h = ch - c * H0;
@@ -780,11 +782,13 @@ pp_message_bwd_kernel(const T* __restrict__ tab_s, const T* __restrict__ tab_v,
     }
 
     // ---- cotangent seeds: the masked broadcast over the K slots --------------
+#pragma unroll 4
     for (int i = tid; i < kR * S; i += kThreads) {
       const int r = i / S, s = i - r * S;
       const int o = sm.OR[r];
       sm.DF[s * kLd + r] = o >= 0 ? rnd<T>(ds[static_cast<size_t>(o) * S + s] * sm.MR[r]) : 0.0f;
     }
+#pragma unroll 4
     for (int i = tid; i < kR * 3 * V; i += kThreads) {
       const int r = i / (3 * V), q = i - r * 3 * V;  // q = v * 3 + plane
       const int v = q / 3, c = q - v * 3;
