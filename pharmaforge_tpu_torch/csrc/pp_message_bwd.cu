@@ -268,16 +268,13 @@ __device__ __forceinline__ void gemm4v(const float* A, int lda, int m, int kd, i
         w[q] = kTrans ? load4(W + (n0 + q) * ldw + k) : load4(W + (k + q) * ldw + n0);
 #pragma unroll
       for (int q = 0; q < 4; ++q) av[q] = *reinterpret_cast<const float4*>(a + (k + q) * lda);
-      // wk[q][j]: the weight of depth k + q, column n0 + j
-      const float wk[4][4] = {
-          {kTrans ? w[0].x : w[0].x, kTrans ? w[1].x : w[0].y, kTrans ? w[2].x : w[0].z,
-           kTrans ? w[3].x : w[0].w},
-          {kTrans ? w[0].y : w[1].x, kTrans ? w[1].y : w[1].y, kTrans ? w[2].y : w[1].z,
-           kTrans ? w[3].y : w[1].w},
-          {kTrans ? w[0].z : w[2].x, kTrans ? w[1].z : w[2].y, kTrans ? w[2].z : w[2].z,
-           kTrans ? w[3].z : w[2].w},
-          {kTrans ? w[0].w : w[3].x, kTrans ? w[1].w : w[3].y, kTrans ? w[2].w : w[3].z,
-           kTrans ? w[3].w : w[3].w}};
+      float wk[4][4];  // wk[q][j]: the weight of depth k + q, column n0 + j
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float e[4] = {w[q].x, w[q].y, w[q].z, w[q].w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) (kTrans ? wk[j][q] : wk[q][j]) = e[j];
+      }
 #pragma unroll
       for (int q = 0; q < 4; ++q)
 #pragma unroll
