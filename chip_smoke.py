@@ -10,12 +10,17 @@ Phases, one line each; any failure raises and the script exits non-zero:
 1. build     -- compile every CUDA kernel of the sampling and training
                 paths from `pharmaforge_tpu_torch/csrc` (nvcc, sm_90a; one
                 nvcc per source, all started together);
-2. knn       -- the `knn_select` kernel (K1) against its plain PyTorch
-                version on the card: idx, dist and xg bit-equal at the
-                sampling shape and at edge cases (ties, a masked pharm
+2. knn       -- the pf k-NN kernel (K1) against its plain PyTorch
+                versions on the card, through both entries: `knn_select`
+                (idx, dist and xg bit-equal) and `knn_pf_edges` (idx and
+                mask bit-equal, x_dir, -x_dir and d_rbf within 2e-6) at
+                the sampling shape and at edge cases (ties, a masked pharm
                 row, fewer valid atoms than k, an odd batch, k in
-                {1, 5, 8}); device times (CUDA-graph replay between CUDA
-                events) of the kernel, the plain version and `torch.topk`;
+                {1, 5, 8, 40}, P in {64, 1,024, 1,500}, F=12); device
+                times (CUDA-graph replay between CUDA events) of both
+                entries, of the selection followed by the 16 PyTorch ops
+                it replaces (also eagerly), of an empty kernel (the launch
+                floor), of the plain version and of `torch.topk`;
 3. golden    -- the frozen chains `tests/golden/trajectory_{radius,knn}.npz`
                 on the card within 2e-3, the knn chain through K1 exactly T
                 times;
@@ -181,7 +186,8 @@ def synthetic_pockets(n: int, atoms: int = 230):
 
 
 def knn_case(rng, b: int, f: int = 8, p: int = 230):
-    """pharm centres near synthetic pocket atoms, with sizes 3..f."""
+    """pharm centres near synthetic pocket atoms (pockets of p atoms before
+    the generator's thinning, in p slots), with sizes 3..f."""
     pockets = synthetic_pockets(4, p)
     prot_x = np.zeros((b, p, 3), np.float32)
     prot_mask = np.zeros((b, p), bool)
@@ -194,63 +200,159 @@ def knn_case(rng, b: int, f: int = 8, p: int = 230):
     return pharm_x, pharm_mask, prot_x, prot_mask
 
 
-def phase_knn(dev) -> dict:
-    from pharmaforge_tpu_torch.ops import knn_select as ks
-    rng = np.random.default_rng(0)
-    cases = []
-    bench = knn_case(rng, 240)
-    cases.append(("bench B=240 k=5", bench, 5))
+# K1's cases against its plain versions: the sampling shape, ties, a masked
+# pharm row, fewer valid atoms than k, an odd batch, the register variants'
+# edges (P=64, P=1,024), the shared-memory variant (P=1,500), k above 32
+# (the passes in two rounds) and more pharm slots than a block has warps
+KNN_EDGE_K = (1, 5, 8)
+KNN_SHAPES = (("odd B=3 k=5", 3, 8, 230, 5), ("P=64 B=4 k=5", 4, 8, 64, 5),
+              ("P=1024 B=4 k=5", 4, 8, 1024, 5),
+              ("P=1500 B=4 k=5", 4, 8, 1500, 5), ("k=40 B=2", 2, 8, 230, 40),
+              ("F=12 B=2 k=5", 2, 12, 230, 5))
+# knn_pf_edges' geometry against its plain version on the card: the fp32
+# sum of three squares, sqrt and expf may round an ulp apart between the
+# kernel and PyTorch's CUDA ops; near d = 15 an ulp of d is ~1e-6, and the
+# RBF's slope (at most 0.86 / sigma) carries it into d_rbf
+KNN_GEOM_ATOL = 2e-6
+# K1 selection only, at B=240 F=8 P=230 k=5, in its earlier design (one
+# block a batch row staging the pocket in shared memory, ten shuffles a
+# pass), by CUDA-graph replay on an H100 80GB HBM3 at 700 W (PERF.md)
+KNN_EARLIER_MS = 0.00557
+
+
+def knn_cases(rng) -> list:
+    """(name, (pharm_x, pharm_mask, prot_x, prot_mask), k) for K1."""
+    cases = [("bench B=240 k=5", knn_case(rng, 240), 5)]
     px, pm, qx, qm = (a.copy() for a in knn_case(rng, 4))
     qx[0, 7] = qx[0, 3]               # exact duplicate coordinates: ties
     qx[1, 10] = qx[1, 2]
     pm[1, :] = False                  # a masked-out pharm row
     qm[2, 3:] = False                 # fewer valid atoms than k
-    for k in (1, 5, 8):
+    for k in KNN_EDGE_K:
         cases.append((f"edge B=4 k={k}", (px, pm, qx, qm), k))
-    cases.append(("odd B=3 k=5", knn_case(rng, 3), 5))
+    for name, b, f, p, k in KNN_SHAPES:
+        cases.append((name, knn_case(rng, b, f=f, p=p), k))
+    return cases
 
-    max_err = 0.0
+
+def knn_check(name: str, args, k: int) -> float:
+    """`knn_select` bit-equal to its plain version; `knn_pf_edges` with idx
+    and mask bit-equal and the geometry within KNN_GEOM_ATOL of its plain
+    version. Each entry must launch the kernel once. Returns the geometry's
+    max abs error."""
+    from pharmaforge_tpu_torch.ops import knn_select as ks
+    before = ks.launches
+    got = ks.knn_select(*args, k)
+    want = ks.knn_select_reference(*args, k)
+    torch.cuda.synchronize()
+    check(ks.launches == before + 1, f"knn {name}: knn_select launched "
+                                     f"{ks.launches - before} kernels")
+    for label, g, w in zip(("idx", "dist", "xg"), got, want):
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"knn {name}: {label} {g.dtype}{tuple(g.shape)} vs "
+              f"{w.dtype}{tuple(w.shape)}")
+        check(torch.equal(g, w), f"knn {name}: {label} differs from "
+                                 f"the plain version")
+    got = ks.knn_pf_edges(*args, k)
+    want = ks.knn_pf_edges_reference(*args, k)
+    torch.cuda.synchronize()
+    check(ks.launches == before + 2, f"knn {name}: knn_pf_edges did not "
+                                     f"launch the kernel once")
+    worst = 0.0
+    for label, g, w in zip(("idx", "mask", "x_dir", "x_dir_fp", "d_rbf"),
+                           got, want):
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"knn {name}: pf {label} {g.dtype}{tuple(g.shape)} vs "
+              f"{w.dtype}{tuple(w.shape)}")
+        if label in ("idx", "mask"):
+            check(torch.equal(g, w), f"knn {name}: pf {label} differs from "
+                                     f"the plain version")
+            continue
+        err = float((g - w).abs().max())
+        check(err <= KNN_GEOM_ATOL, f"knn {name}: pf {label} max |err| "
+                                    f"{err:.3e} > {KNN_GEOM_ATOL}")
+        worst = max(worst, err)
+    return worst
+
+
+def knn_old_sequence(pharm_x, pharm_mask, prot_x, prot_mask, k):
+    """The pf edges as the denoiser built them before the geometry moved
+    into the kernel: the selection-only launch, then 16 PyTorch ops."""
+    from pharmaforge_tpu_torch.ops import knn_select as ks
+    from pharmaforge_tpu_torch.ops.geometry import pair_geometry
+    idx, dist, xg = ks.knn_select(pharm_x, pharm_mask, prot_x, prot_mask, k)
+    x_dir, d_rbf = pair_geometry(pharm_x, xg)
+    return idx.long(), dist < 1e30, x_dir, -x_dir, d_rbf
+
+
+def phase_knn(dev) -> dict:
+    from pharmaforge_tpu_torch.ops import knn_select as ks
+    from pharmaforge_tpu_torch.ops.geometry import RBF_DIM
+    cases = knn_cases(np.random.default_rng(0))
+    errs = {}
     for name, arrs, k in cases:
         args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                 for a in arrs]
-        got = ks.knn_select(*args, k)
-        want = ks.knn_select_reference(*args, k)
-        torch.cuda.synchronize()
-        for label, g, w in zip(("idx", "dist", "xg"), got, want):
-            check(g.dtype == w.dtype and g.shape == w.shape,
-                  f"knn {name}: {label} {g.dtype}{tuple(g.shape)} vs "
-                  f"{w.dtype}{tuple(w.shape)}")
-            check(torch.equal(g, w), f"knn {name}: {label} differs from "
-                                     f"the plain version")
-        max_err = max(max_err, float((got[1] - want[1]).abs().max()),
-                      float((got[2] - want[2]).abs().max()))
+        errs[name] = knn_check(name, args, k)
 
-    args = [torch.from_numpy(a).to(dev) for a in bench]
-    b, f = bench[1].shape
-    p, k = bench[3].shape[1], 5
-    eager_ms = cuda_ms(lambda: ks.knn_select(*args, k))
-    kernel_ms = graph_ms(lambda: ks.knn_select(*args, k))
-    plain_ms = graph_ms(lambda: ks.knn_select_reference(*args, k))
+    args = [torch.from_numpy(a).to(dev) for a in cases[0][1]]
+    b, f = cases[0][1][1].shape
+    p, k = cases[0][1][3].shape[1], cases[0][2]
+    lib = ks._launcher()
+
+    def empty(blocks, threads):
+        return lambda: lib.knn_select_empty_launch(
+            blocks, threads, torch.cuda.current_stream().cuda_stream)
+
+    before = ks.launches
+    times = {
+        "selection": graph_ms(lambda: ks.knn_select(*args, k)),
+        "fused": graph_ms(lambda: ks.knn_pf_edges(*args, k)),
+        "old": graph_ms(lambda: knn_old_sequence(*args, k)),
+        "floor": graph_ms(empty(1, 32)),
+        "floor_grid": graph_ms(empty(-(-b * f // 4), 128)),
+        "fused_eager": cuda_ms(lambda: ks.knn_pf_edges(*args, k)),
+        "old_eager": cuda_ms(lambda: knn_old_sequence(*args, k)),
+        "plain": graph_ms(lambda: ks.knn_pf_edges_reference(*args, k)),
+    }
+    ks.launches = before       # timing launches are not the main path's
     d2 = torch.cdist(args[0], args[2]) ** 2
     library_ms = graph_ms(lambda: torch.topk(d2, k, largest=False))
-    # least time for the same work: inputs read once, outputs written once
-    n_bytes = b * f * 13 + b * p * 13 + b * f * k * 20
-    n_ops = b * f * p * (8 + k)
+    # least time for the same work (the fused entry): inputs read once,
+    # outputs written once (idx 8 B, mask 1, x_dir and x_dir_fp 12 each,
+    # d_rbf 4 RBF_DIM per slot); the distances and passes, then 17
+    # operations of geometry and 5 per RBF value a slot
+    out_slot = 8 + 1 + 12 + 12 + 4 * RBF_DIM
+    n_bytes = b * f * 13 + b * p * 13 + b * f * k * out_slot
+    n_ops = b * f * p * (8 + k) + b * f * k * (17 + 5 * RBF_DIM)
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_FP32_OPS
-    print(f"knn: {len(cases)} cases bit-equal to the plain version "
-          f"(max_abs_err {max_err}); B={b} F={f} P={p} k={k}, per call "
-          f"from CUDA-graph replay: kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, torch.topk on precomputed d2 "
-          f"{library_ms:.4f} ms; bound {max(t_bytes, t_ops) * 1e3:.6f} ms "
-          f"({n_bytes} B, {n_ops} ops); kernel called eagerly back to "
-          f"back {eager_ms:.4f} ms (host dispatch)", flush=True)
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    print(f"knn: {len(cases)} cases, knn_select bit-equal to its plain "
+          f"version and knn_pf_edges' idx and mask bit-equal, geometry max "
+          f"abs err {json.dumps(errs)} (tolerance {KNN_GEOM_ATOL}); B={b} "
+          f"F={f} P={p} k={k}, per call from CUDA-graph replay: selection "
+          f"{times['selection']:.5f} ms (earlier design {KNN_EARLIER_MS}), "
+          f"fused pf edges {times['fused']:.5f} ms, the earlier sequence "
+          f"(selection + 16 PyTorch ops) {times['old']:.5f} ms, empty "
+          f"kernel {times['floor']:.5f} ms (1 x 32 threads) / "
+          f"{times['floor_grid']:.5f} ms (K1's grid, {-(-b * f // 4)} x 128); "
+          f"eagerly back to back: fused {times['fused_eager']:.5f} ms, earlier "
+          f"sequence {times['old_eager']:.5f} ms; plain pf edges "
+          f"{times['plain']:.4f} ms; torch.topk on precomputed d2 "
+          f"{library_ms:.5f} ms; bound {bound_ms:.6f} ms by "
+          f"{'bytes' if t_bytes >= t_ops else 'operations'} ({n_bytes} B at "
+          f"3.35 TB/s, {n_ops} ops at 67 TFLOP/s fp32)", flush=True)
     return {"name": "knn_select", "route": "cuda",
             "source": "pharmaforge_tpu_torch/csrc/knn_select.cu",
             "replaces": "pharmaforge_tpu/ops/pallas/knn_select.py:182",
-            "max_abs_err": max_err, "ms": kernel_ms,
-            "kernel_ms": kernel_ms, "eager_ms": eager_ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "max_abs_err": max(errs.values()), "ms": times["fused"],
+            "fused_ms": times["fused"], "selection_ms": times["selection"],
+            "earlier_ms": KNN_EARLIER_MS, "floor_ms": times["floor"],
+            "floor_grid_ms": times["floor_grid"],
+            "earlier_sequence_ms": times["old"],
+            "earlier_sequence_eager_ms": times["old_eager"],
+            "eager_ms": times["fused_eager"], "plain_ms": times["plain"],
+            "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms}
 

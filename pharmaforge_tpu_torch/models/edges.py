@@ -5,7 +5,8 @@ descriptor:
 
 * gathered (`idx` set): each destination sees M gathered sources -- the
   prot-prot radius list and, in knn mode, prot->pharm (each pharm centre
-  takes its pf_k nearest prot atoms through the `knn_select` kernel);
+  takes its pf_k nearest prot atoms; the `knn_pf_edges` kernel returns
+  the selection and its geometry in one launch);
 * full (`idx` None): an all-pairs mask over a tiny source set (ff, and
   pf/fp in radius mode).
 
@@ -19,8 +20,8 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from pharmaforge_tpu_torch.ops.geometry import norm_no_nan, rbf
-from pharmaforge_tpu_torch.ops.knn_select import knn_select
+from pharmaforge_tpu_torch.ops.geometry import pair_geometry
+from pharmaforge_tpu_torch.ops.knn_select import knn_pf_edges
 from pharmaforge_tpu_torch.ops.neighbors import (
     NeighborList,
     build_pp_neighbors,
@@ -28,11 +29,6 @@ from pharmaforge_tpu_torch.ops.neighbors import (
     knn_mask,
     radius_mask,
 )
-
-RBF_DMAX = 15.0
-RBF_DIM = 16
-_BIG = 1e30
-
 
 class EdgeData(NamedTuple):
     """One edge type's adjacency + geometry.
@@ -91,24 +87,16 @@ class ReverseEdgeData(NamedTuple):
     n_dst: int
 
 
-def _pair_geometry(x_dst, x_src_pairs):
-    """x_dst [B,Nd,3] against per-dst src coords [B,Nd,M,3] -> (unit
-    direction, RBF). The distance carries +1e-8 (edges.py:148)."""
-    x_diff = x_src_pairs - x_dst[:, :, None, :]
-    dij = norm_no_nan(x_diff, keepdim=True) + 1e-8
-    return x_diff / dij, rbf(dij[..., 0], d_max=RBF_DMAX, d_count=RBF_DIM)
-
-
 def full_edge_data(x_dst, x_src, mask) -> EdgeData:
     pairs = x_src[:, None].expand(x_src.shape[0], x_dst.shape[1],
                                   *x_src.shape[1:])
-    x_dir, d_rbf = _pair_geometry(x_dst, pairs)
+    x_dir, d_rbf = pair_geometry(x_dst, pairs)
     return EdgeData(mask=mask, idx=None, x_dir=x_dir, d_rbf=d_rbf)
 
 
 def gathered_edge_data(x_dst, x_src, nbrs: NeighborList) -> EdgeData:
-    x_dir, d_rbf = _pair_geometry(x_dst,
-                                  gather_neighbor_coords(x_src, nbrs.idx))
+    x_dir, d_rbf = pair_geometry(x_dst,
+                                 gather_neighbor_coords(x_src, nbrs.idx))
     return EdgeData(mask=nbrs.mask, idx=nbrs.idx, x_dir=x_dir, d_rbf=d_rbf)
 
 
@@ -137,15 +125,13 @@ def build_edge_bundle(pharm_x, pharm_mask, prot_x, prot_mask, cutoffs,
     bundle["ff"] = full_edge_data(pharm_x, pharm_x, m)
 
     if pf_k and pf_k > 0:
-        # pf: each pharm centre's pf_k nearest prot atoms (the kernel);
-        # fp: the same pairs reversed, on the narrow [B, F, K] layout
-        idx, dist, x_g = knn_select(pharm_x, pharm_mask, prot_x, prot_mask,
-                                    pf_k)
-        idx = idx.long()
-        mask = dist < _BIG
-        x_dir, d_rbf = _pair_geometry(pharm_x, x_g)
+        # pf: each pharm centre's pf_k nearest prot atoms and their
+        # geometry (one kernel launch); fp: the same pairs reversed, on the
+        # narrow [B, F, K] layout
+        idx, mask, x_dir, x_dir_fp, d_rbf = knn_pf_edges(
+            pharm_x, pharm_mask, prot_x, prot_mask, pf_k)
         bundle["pf"] = EdgeData(mask=mask, idx=idx, x_dir=x_dir, d_rbf=d_rbf)
-        bundle["fp"] = ReverseEdgeData(mask=mask, idx=idx, x_dir=-x_dir,
+        bundle["fp"] = ReverseEdgeData(mask=mask, idx=idx, x_dir=x_dir_fp,
                                        d_rbf=d_rbf, n_dst=prot_x.shape[1])
     else:
         pf_mask = radius_mask(pharm_x, pharm_mask, prot_x, prot_mask,

@@ -9,6 +9,11 @@ from __future__ import annotations
 
 import torch
 
+# the edge RBF embedding (reference dynamics_gvp.py): RBF_DIM centres over
+# [0, RBF_DMAX]
+RBF_DMAX = 15.0
+RBF_DIM = 16
+
 
 def norm_no_nan(x: torch.Tensor, dim: int = -1, keepdim: bool = False,
                 eps: float = 1e-8, sqrt: bool = True) -> torch.Tensor:
@@ -27,6 +32,15 @@ def rbf(d: torch.Tensor, d_min: float = 0.0, d_max: float = 20.0,
                           device=d.device)
     d_sigma = (d_max - d_min) / d_count
     return torch.exp(-(((d[..., None] - d_mu) / d_sigma) ** 2))
+
+
+def pair_geometry(x_dst: torch.Tensor, x_src_pairs: torch.Tensor):
+    """x_dst [B,Nd,3] against per-dst src coords [B,Nd,M,3] -> (unit
+    direction src - dst [B,Nd,M,3], RBF [B,Nd,M,RBF_DIM]). The distance
+    carries +1e-8 (edges.py:148)."""
+    x_diff = x_src_pairs - x_dst[:, :, None, :]
+    dij = norm_no_nan(x_diff, keepdim=True) + 1e-8
+    return x_diff / dij, rbf(dij[..., 0], d_max=RBF_DMAX, d_count=RBF_DIM)
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int,

@@ -1,23 +1,31 @@
-"""pf k-nearest-neighbor selection: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""pf k-nearest-neighbor selection (K1): the CUDA kernel's two entries and
+their plain PyTorch versions.
 
 The kernel (`csrc/knn_select.cu`) replaces the Pallas TPU kernel
 `pharmaforge_tpu/ops/pallas/knn_select.py::knn_select`. The sampling chain
 rebuilds the prot->pharm edge list from the noisy pharm coordinates on
 every denoiser call; this selects, for each (b, f), the k nearest valid
-prot atoms with `lax.top_k`'s tie order and gathers their coordinates.
+prot atoms with `lax.top_k`'s tie order.
 
-Bound on the card: it reads about B*P*13 + B*F*13 bytes and writes
-B*F*K*20 bytes (about 1 MB at the sampling shape B=240, F=8, P=230, K=5),
-so it is bound by launch latency rather than bytes or arithmetic. The
-kernel does the distance grid, all k passes and the gather in one launch,
-with one block per batch row staging that row's prot atoms in shared
-memory and one warp per pharm row.
+* `knn_select` returns the JAX kernel's contract: (idx int32, dist, the
+  selected prot coordinates). It is the yardstick of the selection's
+  exactness.
+* `knn_pf_edges` returns what the denoiser's pf and fp edges need:
+  (idx int64, mask, x_dir, x_dir_fp = -x_dir, d_rbf), the geometry
+  computed in the same launch. `models/edges.py::build_edge_bundle`
+  calls it.
 
-`knn_select` launches the kernel for CUDA tensors (or raises) and runs
-`knn_select_reference` for CPU tensors. The plain version is what the CPU
-tests run and what the kernel is held against on the card; the main path
-on the card never calls it. `launches` counts kernel launches.
+Bound on the card: the fused entry reads about B*P*13 + B*F*13 bytes and
+writes B*F*K*97 bytes (about 1.7 MB at the sampling shape B=240, F=8,
+P=230, K=5), so it is bound by launch latency rather than bytes or
+arithmetic. One warp per (b, f) row keeps its candidates in registers
+and runs each of the k passes as two warp reductions (the csrc note
+describes the design).
+
+Both entries launch the kernel for CUDA tensors (or raise) and run their
+plain version for CPU tensors. The plain versions are what the CPU tests
+run and what the kernel is held against on the card; the main path on the
+card never calls them. `launches` counts kernel launches of either entry.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ from typing import Tuple
 
 import torch
 
+from pharmaforge_tpu_torch.ops.geometry import RBF_DIM, pair_geometry
+
 _BIG = 1e30
 # shared memory a block may use on Hopper (bytes)
 _MAX_SMEM = 232448
@@ -35,6 +45,8 @@ _MAX_SMEM = 232448
 launches = 0
 
 Tensors = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+PfEdges = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                torch.Tensor]
 
 
 def knn_select_reference(pharm_x: torch.Tensor, pharm_mask: torch.Tensor,
@@ -66,27 +78,101 @@ def knn_select_reference(pharm_x: torch.Tensor, pharm_mask: torch.Tensor,
     return idx.to(torch.int32), dist, xg
 
 
-def _check(name, t, dtype, shape):
-    if t.dtype != dtype:
-        raise TypeError(f"knn_select: {name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"knn_select: {name} must have shape {shape}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"knn_select: {name} must be contiguous")
+def knn_pf_edges_reference(pharm_x: torch.Tensor, pharm_mask: torch.Tensor,
+                           prot_x: torch.Tensor, prot_mask: torch.Tensor,
+                           k: int) -> PfEdges:
+    """Plain version of the pf/fp edges: (idx [B,F,K] int64, mask
+    [B,F,K] bool, x_dir [B,F,K,3], x_dir_fp = -x_dir, d_rbf
+    [B,F,K,RBF_DIM]): the selection, then `pair_geometry` of the pharm
+    centres against the selected prot atoms."""
+    idx, dist, xg = knn_select_reference(pharm_x, pharm_mask, prot_x,
+                                         prot_mask, k)
+    x_dir, d_rbf = pair_geometry(pharm_x, xg)
+    return idx.long(), dist < _BIG, x_dir, -x_dir, d_rbf
 
 
 @functools.cache
 def _launcher():
     from pharmaforge_tpu_torch.ops import _build
     lib = _build.load("knn_select")
-    fn = lib.knn_select_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 4)
-    fn.restype = ctypes.c_int
-    lib.knn_select_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.knn_select_launch.argtypes = ([ctypes.c_void_p] * 4
+                                      + [ctypes.c_int] * 4
+                                      + [ctypes.c_void_p] * 4)
+    lib.knn_pf_edges_launch.argtypes = ([ctypes.c_void_p] * 4
+                                        + [ctypes.c_int] * 4
+                                        + [ctypes.c_void_p] * 6)
+    lib.knn_select_empty_launch.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_void_p]
+    for fn in (lib.knn_select_launch, lib.knn_pf_edges_launch,
+               lib.knn_select_empty_launch, lib.knn_select_rbf_dim):
+        fn.restype = ctypes.c_int
+    lib.knn_select_smem_bytes.argtypes = [ctypes.c_int]
     lib.knn_select_smem_bytes.restype = ctypes.c_size_t
+    if lib.knn_select_rbf_dim() != RBF_DIM:
+        raise RuntimeError(f"knn_select: the kernel's RBF width "
+                           f"{lib.knn_select_rbf_dim()} differs from "
+                           f"RBF_DIM={RBF_DIM}")
     return lib
+
+
+@functools.cache
+def _fits(p: int) -> bool:
+    """Whether the kernel takes P prot slots (shared memory a block has)."""
+    return _launcher().knn_select_smem_bytes(p) <= _MAX_SMEM
+
+
+def _shape(name: str, pharm_x, pharm_mask, prot_x, prot_mask,
+           k: int) -> Tuple[int, int, int, int]:
+    """Check a CUDA call's inputs against the kernel's contract; returns
+    (B, F, P, k clamped to P). The messages are built only on failure:
+    this runs on every denoiser call."""
+    b, f = pharm_mask.shape
+    p = prot_mask.shape[1]
+    dev = pharm_x.device
+    for arg, t, dtype, shape in (
+            ("pharm_x", pharm_x, torch.float32, (b, f, 3)),
+            ("pharm_mask", pharm_mask, torch.bool, (b, f)),
+            ("prot_x", prot_x, torch.float32, (b, p, 3)),
+            ("prot_mask", prot_mask, torch.bool, (b, p))):
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
+        if t.shape != shape:
+            raise ValueError(f"{name}: {arg} must have shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if t.device != dev:
+            raise ValueError(f"{name}: {arg} on {t.device}, pharm_x on {dev}")
+    k = min(k, p)
+    if k < 1:
+        raise ValueError(f"{name}: need k >= 1 and P >= 1, got k={k}")
+    if not _fits(p):
+        raise ValueError(f"{name}: P={p} needs more shared memory than a "
+                         f"block has")
+    return b, f, p, k
+
+
+def _launch(entry, dev, inputs, b: int, f: int, p: int, k: int,
+            outputs) -> None:
+    """One launch of `entry` on the current stream of `dev`."""
+    if b * f == 0:
+        return
+    with torch.cuda.device(dev):
+        err = entry(*(t.data_ptr() for t in inputs), b, f, p, k,
+                    *(t.data_ptr() for t in outputs),
+                    torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"knn_select kernel launch failed: CUDA error "
+                           f"{err}")
+    global launches
+    launches += 1
+
+
+def _on_card(name: str, dev: torch.device) -> bool:
+    """True for a CUDA device, False for the CPU; raises for others."""
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev.type == "cuda"
 
 
 def knn_select(pharm_x: torch.Tensor, pharm_mask: torch.Tensor,
@@ -94,44 +180,39 @@ def knn_select(pharm_x: torch.Tensor, pharm_mask: torch.Tensor,
                k: int) -> Tensors:
     """Same contract as `knn_select_reference`. CUDA tensors go through the
     kernel; CPU tensors through the plain version."""
+    inputs = (pharm_x, pharm_mask, prot_x, prot_mask)
     dev = pharm_x.device
-    if dev.type == "cpu":
-        return knn_select_reference(pharm_x, pharm_mask, prot_x, prot_mask,
-                                    k)
-    if dev.type != "cuda":
-        raise ValueError(f"knn_select: unsupported device {dev}")
-    b, f = pharm_mask.shape
-    p = prot_mask.shape[1]
-    k = min(k, p)
-    _check("pharm_x", pharm_x, torch.float32, (b, f, 3))
-    _check("pharm_mask", pharm_mask, torch.bool, (b, f))
-    _check("prot_x", prot_x, torch.float32, (b, p, 3))
-    _check("prot_mask", prot_mask, torch.bool, (b, p))
-    for name, t in (("pharm_mask", pharm_mask), ("prot_x", prot_x),
-                    ("prot_mask", prot_mask)):
-        if t.device != dev:
-            raise ValueError(f"knn_select: {name} on {t.device}, "
-                             f"pharm_x on {dev}")
-    if k < 1:
-        raise ValueError(f"knn_select: need k >= 1 and P >= 1, got k={k}")
-    lib = _launcher()
-    if lib.knn_select_smem_bytes(f, p) > _MAX_SMEM:
-        raise ValueError(f"knn_select: P={p} needs more shared memory than "
-                         f"a block has")
+    if not _on_card("knn_select", dev):
+        return knn_select_reference(*inputs, k)
+    b, f, p, k = _shape("knn_select", *inputs, k)
     idx = torch.empty((b, f, k), dtype=torch.int32, device=dev)
     dist = torch.empty((b, f, k), dtype=torch.float32, device=dev)
     xg = torch.empty((b, f, k, 3), dtype=torch.float32, device=dev)
-    if b * f == 0:
-        return idx, dist, xg
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.knn_select_launch(
-            pharm_x.data_ptr(), pharm_mask.data_ptr(), prot_x.data_ptr(),
-            prot_mask.data_ptr(), b, f, p, k, idx.data_ptr(),
-            dist.data_ptr(), xg.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"knn_select kernel launch failed: CUDA error "
-                           f"{err}")
-    global launches
-    launches += 1
+    _launch(_launcher().knn_select_launch, dev, inputs, b, f, p, k,
+            (idx, dist, xg))
     return idx, dist, xg
+
+
+def knn_pf_edges(pharm_x: torch.Tensor, pharm_mask: torch.Tensor,
+                 prot_x: torch.Tensor, prot_mask: torch.Tensor,
+                 k: int) -> PfEdges:
+    """Same contract as `knn_pf_edges_reference`. CUDA tensors go through
+    one kernel launch; CPU tensors through the plain version. The edges
+    get no gradient (the JAX kernel has no backward either): an input
+    that requires grad raises."""
+    inputs = (pharm_x, pharm_mask, prot_x, prot_mask)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise RuntimeError("knn_pf_edges: the pf edges get no gradient; "
+                           "detach the coordinates")
+    dev = pharm_x.device
+    if not _on_card("knn_pf_edges", dev):
+        return knn_pf_edges_reference(*inputs, k)
+    b, f, p, k = _shape("knn_pf_edges", *inputs, k)
+    idx = torch.empty((b, f, k), dtype=torch.int64, device=dev)
+    mask = torch.empty((b, f, k), dtype=torch.bool, device=dev)
+    x_dir = torch.empty((b, f, k, 3), dtype=torch.float32, device=dev)
+    x_dir_fp = torch.empty_like(x_dir)
+    d_rbf = torch.empty((b, f, k, RBF_DIM), dtype=torch.float32, device=dev)
+    _launch(_launcher().knn_pf_edges_launch, dev, inputs, b, f, p, k,
+            (idx, mask, x_dir, x_dir_fp, d_rbf))
+    return idx, mask, x_dir, x_dir_fp, d_rbf

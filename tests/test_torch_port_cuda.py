@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port on the card: the CUDA kernels (K1, K2, K3) against
-their plain versions, the golden chain through K1, and one full-width
+"""PyTorch/CUDA port on the card: the CUDA kernels (K1's two entries, K2,
+K3) against their plain versions, the golden chain through K1, and one full-width
 training step on the card against the CPU.
 
 Every test here is marked `cuda` and skips without a card. The file
@@ -45,9 +45,15 @@ def make_inputs(rng, b=4, f=8, p=64, ties=False):
     return pharm_x, pharm_mask, prot_x, prot_mask
 
 
-@pytest.mark.parametrize("b,p,k,ties", [
-    (240, 230, 5, False), (3, 64, 5, False), (4, 64, 1, True),
-    (4, 64, 5, True), (4, 64, 8, True), (2, 6, 9, False)])
+# the sampling shape, ties and masked rows, k above P, the register
+# variants' largest P (1,024), the shared-memory variant (1,500) and k
+# above 32
+KNN_CASES = [(240, 230, 5, False), (3, 64, 5, False), (4, 64, 1, True),
+             (4, 64, 5, True), (4, 64, 8, True), (2, 6, 9, False),
+             (4, 1024, 5, True), (4, 1500, 5, True), (2, 230, 40, True)]
+
+
+@pytest.mark.parametrize("b,p,k,ties", KNN_CASES)
 def test_kernel_bit_equal_to_plain(dev, b, p, k, ties):
     rng = np.random.default_rng(b * 100 + k)
     args = [torch.from_numpy(a).to(dev)
@@ -62,14 +68,46 @@ def test_kernel_bit_equal_to_plain(dev, b, p, k, ties):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("b,p,k,ties", KNN_CASES)
+def test_pf_edges_kernel_matches_plain(dev, b, p, k, ties):
+    """knn_pf_edges in one launch against its plain version: idx and mask
+    bit-equal, x_dir, x_dir_fp and d_rbf within chip_smoke.KNN_GEOM_ATOL
+    (2e-6, the reason beside it). The largest error is printed."""
+    rng = np.random.default_rng(b * 100 + k)
+    args = [torch.from_numpy(a).to(dev)
+            for a in make_inputs(rng, b=b, p=p, ties=ties)]
+    before = ks.launches
+    got = ks.knn_pf_edges(*args, k)
+    want = ks.knn_pf_edges_reference(*args, k)
+    torch.cuda.synchronize()
+    assert ks.launches == before + 1
+    worst = 0.0
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.dtype in (torch.int64, torch.bool):
+            assert torch.equal(g, w)
+        else:
+            worst = max(worst, float((g - w).abs().max()))
+    print(f"B={b} P={p} k={k}: geometry max abs err {worst}")
+    assert worst <= chip_smoke.KNN_GEOM_ATOL
+
+
 def test_kernel_refuses_bad_inputs(dev):
     args = [torch.from_numpy(a).to(dev)
             for a in make_inputs(np.random.default_rng(0))]
-    with pytest.raises(TypeError):
-        ks.knn_select(args[0], args[1].float(), args[2], args[3], 5)
-    with pytest.raises(ValueError):
-        ks.knn_select(args[0].transpose(0, 1).contiguous().transpose(0, 1),
-                      *args[1:], 5)
+    for entry in (ks.knn_select, ks.knn_pf_edges):
+        with pytest.raises(TypeError):
+            entry(args[0], args[1].float(), args[2], args[3], 5)
+        with pytest.raises(ValueError):
+            entry(args[0].transpose(0, 1).contiguous().transpose(0, 1),
+                  *args[1:], 5)
+        # a pocket beyond the shared-memory variant's rows
+        wide = torch.zeros(1, 60000, 3, device=dev)
+        with pytest.raises(ValueError, match="shared memory"):
+            entry(args[0][:1], args[1][:1], wide,
+                  torch.ones(1, 60000, dtype=torch.bool, device=dev), 5)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ks.knn_pf_edges(args[0].clone().requires_grad_(True), *args[1:], 5)
 
 
 PP_CASES = chip_smoke.PP_CASES
