@@ -4,6 +4,9 @@
     python3 chip_smoke.py            # needs one CUDA card
     python3 chip_smoke.py --profile  # also traces chains and a train step
                                      # with torch.profiler
+    python3 chip_smoke.py --profile-only DIR  # only the build, those
+                                     # traces and the train phase; each
+                                     # kernel table by name into DIR
 
 Phases, one line each; any failure raises and the script exits non-zero:
 
@@ -78,7 +81,10 @@ result.
 from __future__ import annotations
 
 import copy
+import ctypes
 import dataclasses
+import functools
+import hashlib
 import json
 import subprocess
 import sys
@@ -97,6 +103,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS = 67e12
 PEAK_BF16_OPS = 989e12
 KERNELS = ("knn_select", "pp_message", "pp_message_bwd")
+# `--profile-only DIR`: where each profile's full kernel table goes
+PROFILE_TABLES = None
 
 
 def check(cond: bool, msg: str) -> None:
@@ -156,11 +164,52 @@ def graph_ms(fn, calls: int = 50, replays: int = 20) -> float:
 
 # ------------------------------------------------------------------ build
 
+# An empty kernel, the launch floor the knn phase times beside K1. It is
+# not a kernel of the port: the script builds it beside the port's
+# libraries, with their flags.
+FLOOR_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def build_floor() -> Path:
+    """Compile FLOOR_SRC unless its library (keyed on the source) exists."""
+    from pharmaforge_tpu_torch.ops import _build
+    key = hashlib.sha256(FLOOR_SRC.encode()).hexdigest()[:16]
+    out = _build.BUILD_DIR / f"launch_floor-{key}.so"
+    if out.exists():
+        return out
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = out.with_suffix(".cu")
+    src.write_text(FLOOR_SRC)
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                           str(out), str(src)], capture_output=True,
+                          text=True)
+    check(proc.returncode == 0, f"nvcc failed for the empty kernel:\n"
+                                f"{proc.stderr}")
+    return out
+
+
+@functools.cache
+def floor_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_floor()))
+    lib.empty_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.empty_launch.restype = ctypes.c_int
+    return lib
+
+
 def phase_build() -> None:
     from pharmaforge_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        floor = pool.submit(build_floor)
         libs = list(pool.map(_build.build, KERNELS))
+        floor.result()
     secs = time.perf_counter() - t0
     for name, lib in zip(KERNELS, libs):
         ptxas = [ln.strip() for ln in
@@ -168,7 +217,8 @@ def phase_build() -> None:
                  if "registers" in ln or "smem" in ln or "spill" in ln]
         print(f"build: {name}.cu -> {lib.name}; {' | '.join(ptxas)}",
               flush=True)
-    print(f"build: {len(KERNELS)} kernels in {secs:.2f} s", flush=True)
+    print(f"build: {len(KERNELS)} kernels and the empty kernel in "
+          f"{secs:.2f} s", flush=True)
 
 
 # -------------------------------------------------------------------- knn
@@ -286,6 +336,13 @@ def knn_old_sequence(pharm_x, pharm_mask, prot_x, prot_mask, k):
 
 
 def phase_knn(dev) -> dict:
+    """K1 against its plain versions in every case, then its times at the
+    sampling shape. In the kernels line `ms` is `knn_pf_edges`, the main
+    path's call; `plain_ms` its plain version `knn_pf_edges_reference`;
+    `library_ms` `torch.topk` on a precomputed d2, the selection step
+    alone, since no single PyTorch call computes the pf edges;
+    `selection_ms` is `knn_select`, the function the earlier design
+    computed (KNN_EARLIER_MS, printed beside it)."""
     from pharmaforge_tpu_torch.ops import knn_select as ks
     from pharmaforge_tpu_torch.ops.geometry import RBF_DIM
     cases = knn_cases(np.random.default_rng(0))
@@ -298,10 +355,13 @@ def phase_knn(dev) -> dict:
     args = [torch.from_numpy(a).to(dev) for a in cases[0][1]]
     b, f = cases[0][1][1].shape
     p, k = cases[0][1][3].shape[1], cases[0][2]
-    lib = ks._launcher()
+
+    floor = floor_library()
+    check(floor.empty_launch(1, 32, torch.cuda.current_stream().cuda_stream)
+          == 0, "knn: the empty kernel did not launch")
 
     def empty(blocks, threads):
-        return lambda: lib.knn_select_empty_launch(
+        return lambda: floor.empty_launch(
             blocks, threads, torch.cuda.current_stream().cuda_stream)
 
     before = ks.launches
@@ -347,7 +407,7 @@ def phase_knn(dev) -> dict:
             "replaces": "pharmaforge_tpu/ops/pallas/knn_select.py:182",
             "max_abs_err": max(errs.values()), "ms": times["fused"],
             "fused_ms": times["fused"], "selection_ms": times["selection"],
-            "earlier_ms": KNN_EARLIER_MS, "floor_ms": times["floor"],
+            "floor_ms": times["floor"],
             "floor_grid_ms": times["floor_grid"],
             "earlier_sequence_ms": times["old"],
             "earlier_sequence_eager_ms": times["old_eager"],
@@ -554,31 +614,54 @@ def phase_sampling(name: str, dev, cfg, n_pockets: int, per_pocket: int,
           f"max|dx| {cpu_dev:.3e} (tolerance {CHAIN_TOL})", flush=True)
 
     if profile:
-        prof_steps = min(cfg.n_timesteps, 100)
-        prof_model = PharmacophoreDiffusion(
-            dataclasses.replace(cfg, n_timesteps=prof_steps), device=dev)
-        prof_model.load_state_dict(model.state_dict())
-        profile_chain(name, PocketSampler(prof_model, fixed_prot_slots=atoms,
-                                          device=dev),
-                      pockets, n_pharms, gen, prof_steps)
+        profile_chain(name, dev, cfg, model.state_dict(), pockets, n_pharms,
+                      atoms)
     return launches
 
 
-def profile_chain(name: str, sampler, pockets, n_pharms, gen,
-                  steps: int) -> None:
-    """One chain under torch.profiler: device busy share and the kernels
-    that take the most device time."""
+def profile_chain(name: str, dev, cfg, state, pockets, n_pharms,
+                  atoms: int) -> None:
+    """One chain of `cfg` cut to T <= 100, with the weights `state`, under
+    torch.profiler (after a warm-up chain): device busy share and the
+    kernels that take the most device time."""
+    from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
+    from pharmaforge_tpu_torch.training.sampling import PocketSampler
+    steps = min(cfg.n_timesteps, 100)
+    model = PharmacophoreDiffusion(
+        dataclasses.replace(cfg, n_timesteps=steps), device=dev)
+    model.load_state_dict(state)
+    sampler = PocketSampler(model, fixed_prot_slots=atoms, device=dev)
+    gen = torch.Generator(device=dev)
     gen.manual_seed(9)
     sampler.sample_stacked(pockets, n_pharms, gen)      # warm-up
     torch.cuda.synchronize()
     profile_run(f"profile {name}: chain of T={steps}",
-                lambda: sampler.sample_stacked(pockets, n_pharms, gen))
+                lambda: sampler.sample_stacked(pockets, n_pharms, gen), name)
 
 
-def profile_run(label: str, fn) -> None:
+def phase_profile(dev) -> None:
+    """`--profile-only DIR`: one dev chain (T=100) and one full-scale chain
+    cut to T=100, with the `main` and `fullscale` phases' weights and
+    pockets, then the `train` phase with its profiled step, each profile's
+    full kernel table written to DIR. The script may be copied into an
+    earlier checkout of the port to count kernels by name in both trees."""
+    from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
+    sizes = np.random.default_rng(0).integers(3, 9, 30)
+    for name, cfg, n_pockets in (("main", dev_config(), 8),
+                                 ("fullscale", full_config(), 4)):
+        model = PharmacophoreDiffusion(
+            cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        profile_chain(name, dev, cfg, model.state_dict(),
+                      synthetic_pockets(n_pockets, 230),
+                      [sizes] * n_pockets, 230)
+    phase_train(dev, profile=True)
+
+
+def profile_run(label: str, fn, name: str) -> None:
     """`fn` once under torch.profiler; prints its wall time, the device's
     busy share, each port kernel's time per launch and the 12 kernels that
-    take the most device time."""
+    take the most device time. With PROFILE_TABLES set, every device
+    kernel's count and time go to PROFILE_TABLES/<name>.json."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof
     with prof(activities=[ProfilerActivity.CPU,
@@ -612,6 +695,16 @@ def profile_run(label: str, fn) -> None:
           + "; ".join(per_kernel) + "; "
           + "; ".join(f"{e.key[:40]} {self_us(e) / 1e3:.2f} ms x{e.count}"
                       for e in top), flush=True)
+    if PROFILE_TABLES is not None:
+        table: dict = {}
+        for e in events:
+            row = table.setdefault(e.key, {"count": 0, "us": 0.0})
+            row["count"] += e.count
+            row["us"] += self_us(e)
+        PROFILE_TABLES.mkdir(parents=True, exist_ok=True)
+        (PROFILE_TABLES / f"{name}.json").write_text(json.dumps(
+            {"label": label, "wall_s": wall, "busy_s": busy,
+             "kernels": table}, indent=1, sort_keys=True))
 
 
 def phase_main(dev, profile: bool = False, n_pockets: int = 8,
@@ -868,7 +961,6 @@ def phase_pp(dev) -> dict:
             "replaces": "pharmaforge_tpu/ops/pallas/pp_message.py:386",
             "max_abs_err": errs["main bfloat16"], "ms": bf[0],
             "kernel_ms": bf[0], "kernel_alone_ms": bf[6],
-            "earlier_ms": PP_EARLIER_MS,
             "fp32_ms": f32[0], "fp32_kernel_alone_ms": f32[6],
             "fp32_bound_ms": f32[1], "fp32_bound_by": f32[2],
             "train_fp32_ms": train[0], "train_fp32_kernel_alone_ms": train[6],
@@ -1295,7 +1387,7 @@ def phase_train(dev, profile: bool = False, config_fn=train_config,
             resumed.train_step(batch)                       # warm-up
             torch.cuda.synchronize()
             profile_run("profile train: one optimizer step (B=32)",
-                        lambda: resumed.train_step(batch))
+                        lambda: resumed.train_step(batch), "train")
     losses_train = [r["train total loss"] for r in records
                     if "train total loss" in r]
     print(f"train: Trainer.fit on {card()}: {trainer.global_step} steps in "
@@ -1316,6 +1408,7 @@ def phase_train(dev, profile: bool = False, config_fn=train_config,
 
 
 def main() -> int:
+    global PROFILE_TABLES
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -1325,6 +1418,10 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}", flush=True)
     phase_build()
+    if "--profile-only" in sys.argv[1:]:
+        PROFILE_TABLES = Path(sys.argv[sys.argv.index("--profile-only") + 1])
+        phase_profile(dev)
+        return 0
     knn = phase_knn(dev)
     phase_golden(dev)
     dev_launches = phase_main(dev, profile)

@@ -45,8 +45,7 @@
 //    all 32 lanes.
 // NC is a template parameter: 8, 16 and 32 cover P <= 256, 512 and 1,024.
 // Above that a variant keeps each warp's row of keys in shared memory
-// (4 rows a block, fewer when P is large), the same passes reading it:
-// P up to 58,112 at one row a block.
+// (still 4 rows a block), the same passes reading it: P up to 14,528.
 //
 // On an H100 at the sampling shape the time is the longest row's chain:
 // its loads (stride-3 4-byte loads, which keep the load/store unit busy)
@@ -59,8 +58,9 @@
 // (PERF.md).
 //
 // Graph-safe: no global counter; the shared-memory attribute of each
-// variant is set once and cached. Built with --fmad=false and written with
-// __f*_rn intrinsics so the distances are bit-equal to the plain version.
+// variant is set once per device and size and cached. Built with
+// --fmad=false and written with __f*_rn intrinsics so the distances are
+// bit-equal to the plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,6 +73,7 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kRows = 4;                 // warps (rows) a block
 constexpr int kMaxNC = 32;               // largest register variant
 constexpr size_t kMaxSmem = 232448;      // shared memory a Hopper block may use
+constexpr int kMaxDevices = 64;          // devices whose attribute is cached
 constexpr int kRbfDim = 16;              // ops/geometry.py RBF_DIM
 constexpr float kRbfSigma = 0.9375f;     // RBF_DMAX / RBF_DIM = 15 / 16
 
@@ -258,32 +259,29 @@ knn_select_kernel(const Args a) {
   }
 }
 
-// an empty kernel: the launch floor chip_smoke.py times beside K1
-__global__ void empty_kernel() {}
-
-// rows a block of the shared-memory variant holds at P (4, 2 or 1)
-int smem_rows(int P) {
-  int rows = kRows;
-  while (rows > 1 && static_cast<size_t>(rows) * P * sizeof(uint32_t) > kMaxSmem)
-    rows >>= 1;
-  return rows;
-}
-
 template <int NC, bool kEdges>
 int launch_variant(const Args& a, cudaStream_t stream) {
-  const int rows = NC > 0 ? kRows : smem_rows(a.P);
-  const size_t smem =
-      NC > 0 ? 0 : static_cast<size_t>(rows) * a.P * sizeof(uint32_t);
-  static size_t configured = 48 * 1024;  // the attribute, set once per size
-  if (smem > configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        knn_select_kernel<NC, kEdges>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  size_t smem = 0;
+  if constexpr (NC == 0) {
+    smem = static_cast<size_t>(kRows) * a.P * sizeof(uint32_t);
+    if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+    // the attribute is per device: the largest size set on each, cached
+    static size_t configured[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return static_cast<int>(e);
-    configured = smem;
+    if (dev < 0 || dev >= kMaxDevices)
+      return static_cast<int>(cudaErrorInvalidDevice);
+    if (smem > 48 * 1024 && smem > configured[dev]) {
+      e = cudaFuncSetAttribute(knn_select_kernel<NC, kEdges>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+      configured[dev] = smem;
+    }
   }
-  const int blocks = (a.rows + rows - 1) / rows;
-  knn_select_kernel<NC, kEdges><<<blocks, rows * 32, smem, stream>>>(a);
+  const int blocks = (a.rows + kRows - 1) / kRows;
+  knn_select_kernel<NC, kEdges><<<blocks, kRows * 32, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -305,7 +303,7 @@ int launch(const Args& a, void* stream) {
 // Above kMaxSmem the shape is not taken.
 extern "C" size_t knn_select_smem_bytes(int P) {
   if (P <= 32 * kMaxNC) return 0;
-  return static_cast<size_t>(smem_rows(P)) * P * sizeof(uint32_t);
+  return static_cast<size_t>(kRows) * P * sizeof(uint32_t);
 }
 
 // RBF width of knn_pf_edges_launch's d_rbf
@@ -344,8 +342,3 @@ extern "C" int knn_pf_edges_launch(const float* pharm_x,
   return launch<true>(a, stream);
 }
 
-// The empty kernel on `blocks` x `threads`; returns cudaGetLastError().
-extern "C" int knn_select_empty_launch(int blocks, int threads, void* stream) {
-  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
-  return static_cast<int>(cudaGetLastError());
-}

@@ -101,10 +101,8 @@ def _launcher():
     lib.knn_pf_edges_launch.argtypes = ([ctypes.c_void_p] * 4
                                         + [ctypes.c_int] * 4
                                         + [ctypes.c_void_p] * 6)
-    lib.knn_select_empty_launch.argtypes = [ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_void_p]
     for fn in (lib.knn_select_launch, lib.knn_pf_edges_launch,
-               lib.knn_select_empty_launch, lib.knn_select_rbf_dim):
+               lib.knn_select_rbf_dim):
         fn.restype = ctypes.c_int
     lib.knn_select_smem_bytes.argtypes = [ctypes.c_int]
     lib.knn_select_smem_bytes.restype = ctypes.c_size_t

@@ -110,6 +110,34 @@ def test_kernel_refuses_bad_inputs(dev):
         ks.knn_pf_edges(args[0].clone().requires_grad_(True), *args[1:], 5)
 
 
+# the shared-memory variant's largest pocket: four warps' rows of 4-byte
+# keys fill a Hopper block's 232,448 bytes
+KNN_MAX_P = 14528
+
+
+def test_kernel_takes_the_largest_pocket(dev):
+    """At the largest P both entries launch (the shared-memory attribute
+    raised above 48 KB) and match their plain versions; one atom more
+    raises."""
+    rng = np.random.default_rng(7)
+    args = [torch.from_numpy(a).to(dev)
+            for a in make_inputs(rng, b=3, p=KNN_MAX_P, ties=True)]
+    for g, w in zip(ks.knn_select(*args, 5), ks.knn_select_reference(*args, 5)):
+        assert torch.equal(g, w)
+    got = ks.knn_pf_edges(*args, 5)
+    want = ks.knn_pf_edges_reference(*args, 5)
+    for g, w in zip(got, want):
+        if g.dtype in (torch.int64, torch.bool):
+            assert torch.equal(g, w)
+        else:
+            assert float((g - w).abs().max()) <= chip_smoke.KNN_GEOM_ATOL
+    wide = torch.zeros(1, KNN_MAX_P + 1, 3, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        ks.knn_select(args[0][:1], args[1][:1], wide,
+                      torch.ones(1, KNN_MAX_P + 1, dtype=torch.bool,
+                                 device=dev), 5)
+
+
 PP_CASES = chip_smoke.PP_CASES
 
 
