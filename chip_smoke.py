@@ -2,8 +2,9 @@
 """On-card smoke run of the PyTorch/CUDA port (`pharmaforge_tpu_torch`).
 
     python3 chip_smoke.py            # needs one CUDA card
-    python3 chip_smoke.py --profile  # also traces chains and a train step
-                                     # with torch.profiler
+    python3 chip_smoke.py --profile  # also traces chains (dev, full scale
+                                     # with and without the correction) and
+                                     # a train step with torch.profiler
     python3 chip_smoke.py --profile-only DIR  # only the build, those
                                      # traces and the train phase; each
                                      # kernel table by name into DIR
@@ -30,29 +31,47 @@ Phases, one line each; any failure raises and the script exits non-zero:
 4. main      -- the dev model at full width (n_convs=2, 128 scalars, 16
                 vectors, T=100, fp32, random weights from a seed) sampling
                 8 synthetic 230-atom pockets x 30 samples through
-                `PocketSampler.sample_stacked` (B=240): finite output, zero
-                padded slots, exactly 100 K1 and no K2 launches per chain,
+                `PocketSampler.sample_stacked` (B=240; the JAX package's
+                dataflow: the first conv is the compact one, its prot
+                encoder runs once per pocket): finite output, zero padded
+                slots, exactly 100 K1 and no K2 launches per chain,
                 samples/s; and 1 pocket x 8 samples on the CPU and the card
                 with the same injected noise, within 2e-3;
 5. pp        -- the fused pp-message kernel (K2) against its plain version
                 on the card, in bf16 and fp32: the sampling shape (B=120 =
                 4 pockets x 30 copies, P=Nd=230, K=16, S=128, V=16, 3
-                GVPs), the compact tail (copies=1, Nd=40), the training
-                batch (B=32, P=Nd=192 and 256), and edge cases (hidden
-                width V+1, a fully masked destination, K=1, an odd batch,
-                every slot an edge, Nd=233, K=64, widths 72/8/9, 5 GVPs),
-                two calls bit-equal; device times (graph replay) of the
-                wrapper call and of the kernel alone in bf16 and fp32 at
-                the sampling shape and in fp32 at the training shape, each
-                beside its bound, of the plain version, and the eager time;
-6. fullscale -- the reference-size model (n_convs=4, T=1000, endpoint,
-                bf16 edge chains, same widths, random weights from a seed)
-                sampling 4 synthetic 230-atom pockets x 30 through
+                GVPs), the compact tail (copies=1, Nd=40), the pocket-copy
+                correction's two layouts (the clean pass: G=4, Nd=3,680,
+                K=1; the dirty pass: B=120 rows of the 40 pf-listed atoms,
+                Nd=40 x K_out, K=1, its masks as the correction builds
+                them), the training batch (B=32, P=Nd=192 and 256), and
+                edge cases (hidden width V+1, a fully masked destination,
+                K=1, an odd batch, every slot an edge, Nd=233, K=64,
+                widths 72/8/9, 5 GVPs), two calls bit-equal; device times
+                (graph replay) of the wrapper call and of the kernel alone
+                in bf16 and fp32 at the sampling shape and in fp32 at the
+                training shape, and of the wrapper call in bf16 in the
+                compact, clean and dirty layouts, each beside its bound, of
+                the plain version, and the eager time;
+6. fullscale -- the JAX package's full-scale sampling path: the
+                reference-size model (n_convs=4, T=1000, endpoint, bf16
+                edge chains, same widths, random weights from a seed) with
+                the compact prot tail and the pocket-copy correction
+                (`pp_k_out` probed by `PocketSampler`), sampling 4
+                synthetic 230-atom pockets x 30 through
                 `PocketSampler.sample_stacked` (B=120): finite zero-padded
-                output, exactly 2,000 K2 and 1,000 K1 launches per chain,
+                output, a probed k_out > 0, exactly 1,000 correction
+                passes, 3,000 K2 and 1,000 K1 launches per chain,
                 samples/s over timed chains after a warm-up; and the same
-                model in fp32 over 20 steps, 1 pocket x 8, on the card and
-                on the CPU with the same injected noise, within 2e-3;
+                model in fp32 over 20 steps, 1 pocket x 8 (correction on),
+                on the card and on the CPU with the same injected noise,
+                within 2e-3;
+   fullwidth -- the same model with the compact tail off (no correction),
+                T=100, one timed chain: exactly 200 K2 and 100 K1 launches,
+                samples/s, card vs CPU as above; and its fp32 chain over 20
+                steps held against the fullscale path's on the card (same
+                weights and noise) within 2e-3, the bf16 difference
+                printed beside it;
 7. ppbwd     -- the pp-message backward kernel (K3) against autograd
                 through the plain version on the card: the training shape
                 (B=32 pockets of 230 atoms in 256 slots, K=16, S=128,
@@ -80,7 +99,6 @@ result.
 
 from __future__ import annotations
 
-import copy
 import ctypes
 import dataclasses
 import functools
@@ -498,11 +516,20 @@ def dev_config():
 def full_config():
     """The reference-size model of bench.py's full-scale workload
     (bench.py:229-239, 535): the dev widths at n_convs=4 and T=1000, with
-    the endpoint parameterization and bf16 edge-message chains."""
+    the endpoint parameterization and bf16 edge-message chains; the
+    compact prot tail and the prot-encoder dedup on (the defaults), and
+    the pocket-copy correction wherever `PocketSampler` probes it."""
     return dataclasses.replace(dev_config(), n_timesteps=1000, n_convs=4,
                                precision=1e-4, endpoint_param_feat=True,
                                endpoint_param_coord=True,
                                compute_dtype="bfloat16")
+
+
+def fullwidth_config():
+    """The full-scale model on the full-width path (the compact tail off,
+    so no correction either), cut to T=100."""
+    return dataclasses.replace(full_config(), n_timesteps=100,
+                               compact_prot_tail=False)
 
 
 def kernel_counters():
@@ -514,8 +541,11 @@ def kernel_counters():
 
 
 def reset_launches() -> None:
+    """Every kernel launch count and the correction-pass count to 0."""
+    from pharmaforge_tpu_torch.models import conv
     for mod, attr in kernel_counters().values():
         setattr(mod, attr, 0)
+    conv.corrections = 0
 
 
 def read_launches() -> dict:
@@ -523,24 +553,62 @@ def read_launches() -> dict:
             for name, (mod, attr) in kernel_counters().items()}
 
 
-def expected_launches(cfg) -> dict:
+def expected_launches(cfg, corrected: bool = False) -> dict:
     """One chain of `cfg`: K1 once per denoiser call (knn pf), K2 once per
-    middle conv (convs 1 .. n-2) per call."""
+    middle conv (convs 1 .. n-2) per call, and once more where the second
+    conv runs the pocket-copy correction (a clean and a dirty pass)."""
     t = cfg.n_timesteps
     return {"knn_select": t if cfg.pf_k else 0,
-            "pp_message": t * max(cfg.n_convs - 2, 0) if cfg.fused_pp else 0,
+            "pp_message": t * (max(cfg.n_convs - 2, 0) + int(corrected))
+            if cfg.fused_pp else 0,
             "pp_message_bwd": 0}
+
+
+def stacked_k_out(model, pockets, atoms: int) -> int:
+    """The `pp_k_out` that `PocketSampler.sample_stacked` probes for
+    `pockets` in `atoms` slots (0 where the correction cannot engage)."""
+    from pharmaforge_tpu_torch.training.sampling import probe_pp_k_out
+    px = np.zeros((len(pockets), atoms, 3), np.float32)
+    pm = np.zeros((len(pockets), atoms), bool)
+    for i, pocket in enumerate(pockets):
+        n = len(pocket["prot_x"])
+        px[i, :n], pm[i, :n] = pocket["prot_x"], True
+    return probe_pp_k_out(model, px, pm)
+
+
+def chain_on(model, cfg, batch, noise, dev=None) -> tuple:
+    """The injected-noise chain of `model`'s weights under `cfg` for the
+    one-pocket `batch`, on `dev` (the model's device by default), grouped
+    with the probed `pp_k_out`: (final pharm_x, launch counts, correction
+    passes, k_out)."""
+    from pharmaforge_tpu_torch.models import conv
+    from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
+    from pharmaforge_tpu_torch.training.sampling import probe_pp_k_out
+    m = PharmacophoreDiffusion(cfg, device=dev or model.device)
+    m.load_state_dict(model.state_dict())
+    k_out = probe_pp_k_out(m, batch.prot_x[:1], batch.prot_mask[:1])
+    reset_launches()
+    out = m.sample_given_receptor(batch, noise=noise,
+                                  pocket_group_size=batch.batch_size,
+                                  pp_k_out=k_out)
+    if m.device.type == "cuda":
+        torch.cuda.synchronize()
+    return out["pharm_x"].cpu(), read_launches(), conv.corrections, k_out
 
 
 def phase_sampling(name: str, dev, cfg, n_pockets: int, per_pocket: int,
                    atoms: int, timed: int, cmp_steps: int,
-                   profile: bool = False) -> dict:
+                   profile: bool = False, other=None) -> dict:
     """Drive `cfg` through `PocketSampler.sample_stacked`: a warm-up chain,
     then `timed` chains with every launch count set to 0 just before and
     read just after; then the same weights in fp32 over `cmp_steps` steps,
     1 pocket x 8, on the card and on the CPU with the same injected noise.
-    Returns the launch counts of one timed chain."""
+    `other` (DiffusionConfig overrides: the other sampling path) also
+    holds that fp32 chain against the other path's on the card and prints
+    the two paths' bf16 difference. Returns the launch counts of one timed
+    chain."""
     from pharmaforge_tpu_torch.data.batch import tile_pocket
+    from pharmaforge_tpu_torch.models import conv
     from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
     from pharmaforge_tpu_torch.training.sampling import PocketSampler
 
@@ -552,7 +620,9 @@ def phase_sampling(name: str, dev, cfg, n_pockets: int, per_pocket: int,
     sampler = PocketSampler(model, fixed_prot_slots=atoms, device=dev)
     gen = torch.Generator(device=dev)
 
-    want = expected_launches(cfg)
+    k_out = stacked_k_out(model, pockets, atoms)
+    want = expected_launches(cfg, k_out > 0)
+    want_corr = cfg.n_timesteps if k_out else 0
     gen.manual_seed(1)
     sampler.sample_stacked(pockets, n_pharms, gen)   # warm-up
     torch.cuda.synchronize()
@@ -567,6 +637,9 @@ def phase_sampling(name: str, dev, cfg, n_pockets: int, per_pocket: int,
         launches = read_launches()
         check(launches == want, f"{name}: launches per chain {launches}, "
                                 f"expected {want}")
+        check(conv.corrections == want_corr,
+              f"{name}: {conv.corrections} correction passes per chain, "
+              f"expected {want_corr}")
         rates.append(n_pockets * per_pocket / dt)
     out = sampler.last_output
     mask = out["pharm_mask"]
@@ -580,11 +653,10 @@ def phase_sampling(name: str, dev, cfg, n_pockets: int, per_pocket: int,
         [r.n_ph_centers for r in rs] == list(sizes) for rs in res),
         f"{name}: sample sizes differ from the request")
 
-    # the same weights in fp32 and injected noise on the CPU and the card
+    # the same weights in fp32 and injected noise on the CPU and the card,
+    # grouped, the correction on where this path probes it
     cmp_cfg = dataclasses.replace(cfg, n_timesteps=cmp_steps,
                                   compute_dtype="float32")
-    cmp_model = PharmacophoreDiffusion(cmp_cfg, device=dev)
-    cmp_model.load_state_dict(model.state_dict())
     batch = tile_pocket(pockets[0]["prot_x"], pockets[0]["prot_h"],
                         sizes[:8], max_prot=atoms)
     rng = np.random.default_rng(3)
@@ -594,24 +666,44 @@ def phase_sampling(name: str, dev, cfg, n_pockets: int, per_pocket: int,
              "pos": rng.normal(size=(cmp_steps, b, 8, 3)),
              "feat": rng.normal(size=(cmp_steps, b, 8, 6))}
     noise = {k: v.astype(np.float32) for k, v in noise.items()}
-    reset_launches()
-    on_card = cmp_model.sample_given_receptor(batch, noise=noise,
-                                              pocket_group_size=b)
-    torch.cuda.synchronize()
-    cmp_launches = read_launches()
-    check(cmp_launches == expected_launches(cmp_cfg),
-          f"{name}: card-vs-CPU chain launches {cmp_launches}")
-    on_cpu = copy.deepcopy(cmp_model).to("cpu").sample_given_receptor(
-        batch, noise=noise, pocket_group_size=b)
-    cpu_dev = float((on_card["pharm_x"].cpu() - on_cpu["pharm_x"])
-                    .abs().max())
+    on_card, cmp_launches, cmp_corr, cmp_k = chain_on(model, cmp_cfg, batch,
+                                                      noise)
+    check(cmp_launches == expected_launches(cmp_cfg, cmp_k > 0)
+          and cmp_corr == (cmp_steps if cmp_k else 0)
+          and (cmp_k > 0) == (k_out > 0),
+          f"{name}: card-vs-CPU chain launches {cmp_launches}, "
+          f"{cmp_corr} correction passes, k_out {cmp_k}")
+    on_cpu = chain_on(model, cmp_cfg, batch, noise, dev="cpu")[0]
+    cpu_dev = float((on_card - on_cpu).abs().max())
     check(cpu_dev < CHAIN_TOL, f"{name}: card vs CPU final coords differ "
                                f"by {cpu_dev:.3e} >= {CHAIN_TOL}")
+    versus = ""
+    if other is not None:
+        # the other sampling path with the same weights and noise: fp32
+        # within the chain tolerance, bf16 printed
+        alt = chain_on(model, dataclasses.replace(cmp_cfg, **other), batch,
+                       noise)
+        alt_dev = float((on_card - alt[0]).abs().max())
+        check(alt_dev < CHAIN_TOL and (alt[3] > 0) != (cmp_k > 0)
+              and alt[2] == (cmp_steps if alt[3] else 0),
+              f"{name}: against {other} (k_out {alt[3]}, {alt[2]} "
+              f"correction passes) final coords differ by {alt_dev:.3e} "
+              f"(tolerance {CHAIN_TOL})")
+        bf16 = [chain_on(model, dataclasses.replace(
+                    cmp_cfg, compute_dtype="bfloat16", **o), batch, noise)[0]
+                for o in ({}, other)]
+        versus = (f"; against the path {other} on the card (same weights "
+                  f"and noise, k_out {alt[3]}, {alt[2]} correction "
+                  f"passes): fp32 max|dx| {alt_dev:.3e} "
+                  f"(tolerance {CHAIN_TOL}), bf16 max|dx| "
+                  f"{float((bf16[0] - bf16[1]).abs().max()):.3e}")
     print(f"{name}: B={n_pockets * per_pocket} T={cfg.n_timesteps} "
-          f"n_convs={cfg.n_convs} {cfg.compute_dtype} on {card()}: "
-          f"samples/s {' '.join(f'{r:.2f}' for r in rates)}; launches per "
-          f"chain {launches}; card vs CPU (fp32, T={cmp_steps}, B={b}) "
-          f"max|dx| {cpu_dev:.3e} (tolerance {CHAIN_TOL})", flush=True)
+          f"n_convs={cfg.n_convs} {cfg.compute_dtype} compact tail "
+          f"{cfg.compact_prot_tail} k_out {k_out} on {card()}: samples/s "
+          f"{' '.join(f'{r:.2f}' for r in rates)}; launches per chain "
+          f"{launches}, correction passes {want_corr}; card vs CPU (fp32, "
+          f"T={cmp_steps}, B={b}, k_out {cmp_k}) max|dx| {cpu_dev:.3e} "
+          f"(tolerance {CHAIN_TOL}){versus}", flush=True)
 
     if profile:
         profile_chain(name, dev, cfg, model.state_dict(), pockets, n_pharms,
@@ -641,14 +733,16 @@ def profile_chain(name: str, dev, cfg, state, pockets, n_pharms,
 
 def phase_profile(dev) -> None:
     """`--profile-only DIR`: one dev chain (T=100) and one full-scale chain
-    cut to T=100, with the `main` and `fullscale` phases' weights and
+    cut to T=100 with and without the compact tail and the correction,
+    with the `main`, `fullscale` and `fullwidth` phases' weights and
     pockets, then the `train` phase with its profiled step, each profile's
     full kernel table written to DIR. The script may be copied into an
     earlier checkout of the port to count kernels by name in both trees."""
     from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
     sizes = np.random.default_rng(0).integers(3, 9, 30)
     for name, cfg, n_pockets in (("main", dev_config(), 8),
-                                 ("fullscale", full_config(), 4)):
+                                 ("fullscale", full_config(), 4),
+                                 ("fullwidth", fullwidth_config(), 4)):
         model = PharmacophoreDiffusion(
             cfg, device=dev, generator=torch.Generator().manual_seed(0))
         profile_chain(name, dev, cfg, model.state_dict(),
@@ -730,7 +824,7 @@ def pp_case(dev, *, dtype: str, n_groups: int = 4, copies: int = 30,
             atoms: int = 230, k: int = 16, nd=None, hj: int = 16,
             masked_row: bool = False, s: int = 128, v: int = 16,
             slots=None, dup: bool = False, table_dtype=None,
-            cutoff: float = 3.5, n_gvps: int = 3):
+            cutoff: float = 3.5, n_gvps: int = 3, layout=None):
     """One K2 call as the main path makes it: the pp edges of synthetic
     pockets at pocket-group level, random node tables in the compute
     dtype (or `table_dtype`), a message chain with seeded weights. `nd`
@@ -739,7 +833,12 @@ def pp_case(dev, *, dtype: str, n_groups: int = 4, copies: int = 30,
     (the training batch); `dup` makes one source atom occur twice in one
     destination's list and in a list of another tile. `cutoff` is the pp
     radius (3.5 A on the main path; a large one makes every slot of an
-    atom with K neighbours an edge); `n_gvps` the message chain's depth."""
+    atom with K neighbours an edge); `n_gvps` the message chain's depth.
+    `layout` is one of the pocket-copy correction's calls (copies=1 on
+    the kernel): "clean", every pp edge of a group its own destination row
+    ([G, P*K, 1]); "dirty", the out-edges of each copy's pf-listed atoms
+    ([B, m*K_out, 1] over tables of the m = F*pf_k listed rows;
+    `correction_case`)."""
     from pharmaforge_tpu_torch.models.conv import message_specs
     from pharmaforge_tpu_torch.models.edges import (EdgeData,
                                                     GroupedEdgeData,
@@ -773,12 +872,21 @@ def pp_case(dev, *, dtype: str, n_groups: int = 4, copies: int = 30,
         ed.idx[:, ed.idx.shape[1] - 3, 0] = src  # and in another tile's
         ed.mask[:, 5, :2] = True
         ed.mask[:, ed.idx.shape[1] - 3, 0] = True
+    b = n_groups * copies
+    if layout == "clean":
+        e = ed.mask.shape[1] * k
+        ed = EdgeData(ed.mask.reshape(n_groups, e, 1),
+                      ed.idx.reshape(n_groups, e, 1),
+                      ed.x_dir.reshape(n_groups, e, 1, 3),
+                      ed.d_rbf.reshape(n_groups, e, 1, 16))
+    elif layout == "dirty":
+        ed, slots = correction_case(dev, ed, prot_x, prot_mask, copies)
+        n_groups, copies = b, 1
     edge = GroupedEdgeData(*ed, copies=copies) if copies > 1 else ed
     specs = message_specs(n_gvps, v, s, 16)
     specs[1:] = [dict(sp, hidden_vectors=hj) for sp in specs[1:]]
     chain = reset_parameters_(GVPChain(specs),
                               torch.Generator().manual_seed(7)).to(dev)
-    b = n_groups * copies
     tdt = table_dtype or dt
     pre_s = torch.randn(b, slots, s, generator=gen, device=dev).to(tdt)
     planes = [(0.5 * torch.randn(b, slots, v + 1, generator=gen,
@@ -786,6 +894,44 @@ def pp_case(dev, *, dtype: str, n_groups: int = 4, copies: int = 30,
     kw = dict(scalar_size=s, vector_size=v, rbf_dim=16,
               compute_dtype=dtype, copies=copies)
     return (pre_s, planes, edge, chain), kw
+
+
+@functools.cache
+def fullscale_model(dev):
+    """The fullscale phase's model (weights from seed 0), for its probe."""
+    from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
+    return PharmacophoreDiffusion(
+        full_config(), device=dev, generator=torch.Generator().manual_seed(0))
+
+
+def correction_case(dev, ed, prot_x, prot_mask, copies: int) -> tuple:
+    """The dirty pass of the pocket-copy correction on the group-level pp
+    edge `ed` of the pockets (prot_x, prot_mask [G, P]), `copies` rows
+    each: pharm centres near the pocket (sizes 3..8 in 8 slots), their
+    pf_k=5 nearest atoms from K1's plain version, k_out as
+    `PocketSampler` probes it for these pockets, the dirty slots and
+    out-edges as the denoiser builds them. Returns (the K=1 edge
+    [B, m*K_out, 1], m)."""
+    from pharmaforge_tpu_torch.models.conv import dirty_out_edges
+    from pharmaforge_tpu_torch.models.dynamics import dirty_slots
+    from pharmaforge_tpu_torch.models.edges import (EdgeData,
+                                                    build_pp_out_edges)
+    from pharmaforge_tpu_torch.ops.knn_select import knn_pf_edges_reference
+    from pharmaforge_tpu_torch.training.sampling import probe_pp_k_out
+    k_out = probe_pp_k_out(fullscale_model(dev), prot_x, prot_mask)
+    rng = np.random.default_rng(12)
+    g = prot_x.shape[0]
+    b = g * copies
+    pharm_x = rng.normal(scale=4.0, size=(b, 8, 3)).astype(np.float32)
+    pharm_mask = np.arange(8)[None] < rng.integers(3, 9, b)[:, None]
+    tt = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+          (pharm_x, pharm_mask, np.repeat(prot_x, copies, axis=0),
+           np.repeat(prot_mask, copies, axis=0))]
+    idx, mask, x_dir, _, d_rbf = knn_pf_edges_reference(*tt, 5)
+    corr = dirty_slots(EdgeData(mask, idx, x_dir, d_rbf),
+                       build_pp_out_edges(ed, k_out), copies)
+    edge = dirty_out_edges(ed, copies, corr)[0]
+    return edge, corr["slots"].shape[1]
 
 
 def pp_bound(args, kw) -> tuple:
@@ -840,6 +986,11 @@ PP_TRAIN_192 = dict(n_groups=32, copies=1, atoms=230, slots=192)
 PP_CASES = {
     "main": {},
     "compact Nd=40 copies=1": dict(n_groups=120, copies=1, nd=40),
+    # the pocket-copy correction's calls at the fullscale phase's pockets
+    "corr clean K=1 G=4 Nd=3680": dict(n_groups=4, copies=1,
+                                       layout="clean"),
+    "corr dirty K=1 B=120 P=40 Nd=40*K_out": dict(n_groups=4, copies=30,
+                                                  layout="dirty"),
     "train B=32 P=Nd=192": PP_TRAIN_192,
     "train B=32 P=Nd=256": PPBWD_TRAIN,
     "hj=V+1": dict(n_groups=2, copies=3, hj=17),
@@ -858,9 +1009,14 @@ PP_CASES = {
     # a deeper chain: bf16 weights past the shared memory stage per GVP
     "5 GVPs": dict(n_groups=2, copies=3, n_gvps=5),
 }
+# the fullscale path's K2 layouts other than the sampling shape, timed in
+# bf16
+PP_LAYOUTS = ("compact Nd=40 copies=1", "corr clean K=1 G=4 Nd=3680",
+              "corr dirty K=1 B=120 P=40 Nd=40*K_out")
 # two calls on the same inputs give bit-equal sums (no atomics)
 PP_REPEAT = ("main", "train B=32 P=Nd=192", "train B=32 P=Nd=256", "dense",
-             "K=64")
+             "K=64", "corr clean K=1 G=4 Nd=3680",
+             "corr dirty K=1 B=120 P=40 Nd=40*K_out")
 # K2 bf16 at the sampling shape in its earlier, FMA-only design, timed as
 # `ms` is: the wrapper call (the edge terms in plain PyTorch, then the
 # kernel) by CUDA-graph replay
@@ -935,6 +1091,18 @@ def phase_pp(dev) -> dict:
         bf = pp_times(dev, "bfloat16", {}, calls=50, replays=10)
         f32 = pp_times(dev, "float32", {}, calls=20, replays=5)
         train = pp_times(dev, "float32", PPBWD_TRAIN, calls=20, replays=5)
+        # the fullscale path's other layouts, bf16 as it runs them
+        layouts = {}
+        for name in PP_LAYOUTS:
+            got = pp_times(dev, "bfloat16", PP_CASES[name], calls=50,
+                           replays=10)
+            largs, _ = pp_case(dev, dtype="bfloat16", **PP_CASES[name])
+            layouts[name] = dict(
+                ms=got[0], kernel_alone_ms=got[6], bound_ms=got[1],
+                bound_by=got[2], edge_rows=got[5],
+                slots=largs[2].mask.numel(),
+                table_rows=largs[0].shape[1],
+                nd=largs[2].mask.shape[1])
     (b, p, s), (g, nd, k) = args[0].shape, args[2].mask.shape
     print(f"pp: {len(errs)} cases within tolerance of the plain version "
           f"(fp32 {PP_TOL['float32']}, bf16 {PP_TOL['bfloat16']}), two calls "
@@ -955,7 +1123,13 @@ def phase_pp(dev) -> dict:
           f"{train[6]:.4f} ms; bound {train[1]:.6f} "
           f"ms by {train[2]}: {train[3]} B, {train[4]} ops at 67 TFLOP/s; "
           f"{rates(*train[:2], *train[3:5], train[6])}); wrapper called eagerly back "
-          f"to back {eager_ms:.4f} ms", flush=True)
+          f"to back {eager_ms:.4f} ms; bf16 layouts of the fullscale path "
+          f"(wrapper call; kernel alone; bound; edge rows of slots): "
+          + "; ".join(f"{n} [Nd={v['nd']}, table rows {v['table_rows']}] "
+                      f"{v['ms']:.4f} ms; {v['kernel_alone_ms']:.4f} ms; "
+                      f"{v['bound_ms']:.6f} ms by {v['bound_by']}; "
+                      f"{v['edge_rows']} of {v['slots']}"
+                      for n, v in layouts.items()), flush=True)
     return {"name": "pp_message", "route": "cuda",
             "source": "pharmaforge_tpu_torch/csrc/pp_message.cu",
             "replaces": "pharmaforge_tpu/ops/pallas/pp_message.py:386",
@@ -966,7 +1140,8 @@ def phase_pp(dev) -> dict:
             "train_fp32_ms": train[0], "train_fp32_kernel_alone_ms": train[6],
             "train_fp32_bound_ms": train[1], "train_fp32_bound_by": train[2],
             "eager_ms": eager_ms, "plain_ms": plain_ms,
-            "bound_ms": bf[1], "bound_by": bf[2], "library_ms": None}
+            "bound_ms": bf[1], "bound_by": bf[2], "library_ms": None,
+            "layouts_bf16": layouts}
 
 
 # ----------------------------------------------------------------- ppbwd
@@ -1203,6 +1378,13 @@ def phase_fullscale(dev, profile: bool = False) -> dict:
                           profile=profile)
 
 
+def phase_fullwidth(dev, profile: bool = False) -> dict:
+    return phase_sampling("fullwidth", dev, fullwidth_config(),
+                          n_pockets=4, per_pocket=30, atoms=230, timed=1,
+                          cmp_steps=20, profile=profile,
+                          other=dict(compact_prot_tail=True))
+
+
 # ------------------------------------------------------------------ train
 
 PER_STEP = {"knn_select": 1, "pp_message": 2, "pp_message_bwd": 2}
@@ -1427,6 +1609,7 @@ def main() -> int:
     dev_launches = phase_main(dev, profile)
     pp = phase_pp(dev)
     full_launches = phase_fullscale(dev, profile)
+    width_launches = phase_fullwidth(dev, profile)
     ppbwd = phase_ppbwd(dev)
     train_launches = phase_train(dev, profile)
     kernels = [knn, pp, ppbwd]
@@ -1434,6 +1617,7 @@ def main() -> int:
         # `launches`: this slice's main path, the 2-epoch training run
         kern["launches"] = train_launches[kern["name"]]
         kern["launches_fullscale_chain"] = full_launches[kern["name"]]
+        kern["launches_fullwidth_chain_t100"] = width_launches[kern["name"]]
         kern["launches_dev_chain"] = dev_launches[kern["name"]]
         check(kern["launches"] > 0, f"{kern['name']}: not launched by the "
                                     f"training run")

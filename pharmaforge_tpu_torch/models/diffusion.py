@@ -28,7 +28,11 @@ from torch.nn import functional as F
 from pharmaforge_tpu_torch import resolve_device
 from pharmaforge_tpu_torch.data.batch import PharmComplexBatch
 from pharmaforge_tpu_torch.models.dynamics import PharmRecDynamics
-from pharmaforge_tpu_torch.models.edges import GroupedEdgeData, build_pp_edge
+from pharmaforge_tpu_torch.models.edges import (
+    GroupedEdgeData,
+    build_pp_edge,
+    build_pp_out_edges,
+)
 from pharmaforge_tpu_torch.models.gvp import reset_parameters_
 from pharmaforge_tpu_torch.models.schedules import make_gamma_table
 from pharmaforge_tpu_torch.ops.geometry import masked_com
@@ -63,13 +67,14 @@ class DiffusionConfig:
     defaults of the JAX package's `DiffusionConfig`, so one YAML config
     builds both.
 
-    The port computes the full-width path whatever `compact_prot_tail`,
-    `dedup_prot_encoder` and `precompute_step_tables` say (the JAX
-    package documents all three as exact reorderings of the same math).
-    `fused_pp` other than False runs the middle convs' prot-prot chain
-    through the fused kernel (`ops/pp_message.py`); `compute_dtype` is
-    "float32" or "bfloat16" (the edge-message chains). The correction path
-    (`pp_k_out`) is not ported yet and raises NotImplementedError."""
+    `compact_prot_tail` and `dedup_prot_encoder` switch the JAX package's
+    sampling reorderings of the same math (the compact prot tail, the prot
+    encoder once per pocket group); `precompute_step_tables` is accepted
+    and not ported (the full per-step computation runs). `fused_pp` other
+    than False runs the middle convs' prot-prot chain through the fused
+    kernel (`ops/pp_message.py`), and with it the pocket-copy correction
+    (`sample_given_receptor`'s `pp_k_out`); `compute_dtype` is "float32"
+    or "bfloat16" (the edge-message chains)."""
 
     pharm_nf: int = 6
     rec_nf: int = 11
@@ -154,6 +159,8 @@ class DiffusionConfig:
             ff_k=self.ff_k,
             pf_k=self.pf_k,
             prune_dead_prot_tail=self.prune_dead_prot_tail,
+            compact_prot_tail=self.compact_prot_tail,
+            dedup_prot_encoder=self.dedup_prot_encoder,
             compute_dtype=self.compute_dtype,
             fused_pp=self.fused_pp,
         )
@@ -283,7 +290,8 @@ class PharmacophoreDiffusion(nn.Module):
 
         h_dyn, x_dyn = self.dynamics(h_t, x_t, pharm_mask, prot_h, prot_x,
                                      prot_mask, t, pp_edge=pp_edge,
-                                     generator=generator)
+                                     generator=generator,
+                                     deterministic=not train)
 
         # losses (pharmacodiff.py:204-232)
         if cfg.endpoint_param_feat:
@@ -357,13 +365,15 @@ class PharmacophoreDiffusion(nn.Module):
 
         `pocket_group_size` = C > 1 declares that every C consecutive rows
         carry one pocket; the first conv's prot-prot messages are then
-        computed once per group (numerically the same result)."""
+        computed once per group (numerically the same result).
+
+        `pp_k_out` > 0 with C > 1 turns on the pocket-copy correction of
+        the second conv (the JAX package's argument; `PocketSampler`
+        probes it with `probe_pp_k_out`): the pp edge's out-edge tables are
+        built once per chain with `pp_k_out` slots per atom, and a value
+        below the pp graph's maximum out-degree raises ValueError."""
         cfg = self.config
         self.eval()
-        if pp_k_out:
-            raise NotImplementedError(
-                "pp_k_out > 0 (the pocket-copy correction path) is not "
-                "ported yet")
         dev = self.device
         pharm_mask = self._tensor(batch.pharm_mask, torch.bool)
         prot_mask = self._tensor(batch.prot_mask, torch.bool)
@@ -381,12 +391,16 @@ class PharmacophoreDiffusion(nn.Module):
 
         # pp neighbors + geometry are translation invariant: built once
         # per chain, on the pocket-group representatives when grouped
+        pp_out = None
         if pocket_group_size > 1:
             c = pocket_group_size
             _, ed_g = build_pp_edge(prot_x0[::c], prot_mask[::c],
                                     self.cutoffs["pp"], cfg.pp_k_max)
             pp_edge = GroupedEdgeData(ed_g.mask, ed_g.idx, ed_g.x_dir,
                                       ed_g.d_rbf, copies=c)
+            # the pp edge's transpose, static over the chain
+            if pp_k_out:
+                pp_out = build_pp_out_edges(ed_g, int(pp_k_out))
         else:
             _, pp_edge = build_pp_edge(prot_x0, prot_mask,
                                        self.cutoffs["pp"], cfg.pp_k_max)
@@ -432,7 +446,8 @@ class PharmacophoreDiffusion(nn.Module):
                                dtype=torch.float32, device=dev)
             pred_h, pred_x = self.dynamics(
                 h_t, x_t, pharm_mask, prot_h, prot_x, prot_mask, t_arr,
-                pp_edge=pp_edge, pocket_group_size=pocket_group_size)
+                pp_edge=pp_edge, pocket_group_size=pocket_group_size,
+                deterministic=True, pp_out=pp_out)
             if cfg.endpoint_param_coord:
                 mu_pos = c_x * x_t + c_pred * pred_x
             else:

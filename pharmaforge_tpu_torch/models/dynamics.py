@@ -6,10 +6,12 @@ follows the reference (`pharm_encoder.{0,2}`, `prot_encoder.{0,2}`,
 `noise_predictor.conv_layers.{i}`, `noise_predictor.noise_predictor`), so
 reference state dicts load into it as they are.
 
-The JAX package's compact prot tail, prot-encoder dedup and step tables
-are exact reorderings of this same math; the port computes the
-full-width path. The pocket-group dedup of the first conv's prot-prot
-messages (`pocket_group_size`) is kept.
+In eval mode the forward runs the JAX package's sampling dataflow: the
+compact prot tail (the last prot update on the pf-listed atoms only), the
+prot encoder once per pocket group when the first conv is the compact one,
+and, given the pp out-edges (`pp_out`), the pocket-copy correction of the
+second conv. Train mode keeps the full-width path, as in JAX. The JAX
+package's step tables (`precompute_step_tables`) are not ported.
 """
 
 from __future__ import annotations
@@ -19,8 +21,14 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from pharmaforge_tpu_torch.models.conv import GVPMultiEdgeConv
-from pharmaforge_tpu_torch.models.edges import build_edge_bundle
+from pharmaforge_tpu_torch.models.conv import (
+    GVPMultiEdgeConv,
+    message_norm_is_dynamic,
+)
+from pharmaforge_tpu_torch.models.edges import (
+    PreGatheredEdgeData,
+    build_edge_bundle,
+)
 from pharmaforge_tpu_torch.models.gvp import GVPChain
 
 
@@ -85,15 +93,23 @@ class PharmRecDynamics(nn.Module):
                  n_noise_gvps: int = 3, dropout: float = 0.0,
                  ff_k: int = 0, pf_k: int = 0,
                  prune_dead_prot_tail: bool = True,
+                 compact_prot_tail: bool = True,
+                 dedup_prot_encoder: bool = True,
                  compute_dtype: str = "float32", fused_pp=False):
         """`compute_dtype` and `fused_pp` go to every conv (the
         edge-message chains' dtype; the fused prot-prot branch of the
-        middle convs)."""
+        middle convs). `compact_prot_tail` and `dedup_prot_encoder` are
+        the JAX package's switches of the same names."""
         super().__init__()
         self.vector_size = vector_size
         self.cutoffs = dict(graph_cutoffs)
         self.ff_k = ff_k
         self.pf_k = pf_k
+        self.n_convs = n_convs
+        self.message_norm = message_norm
+        self.prune_dead_prot_tail = prune_dead_prot_tail
+        self.compact_prot_tail = compact_prot_tail
+        self.dedup_prot_encoder = dedup_prot_encoder
         s = n_hidden_scalars
         self.pharm_encoder = ScalarEncoder(n_pharm_scalars + 1, s)
         self.prot_encoder = ScalarEncoder(n_prot_scalars + 1, s)
@@ -113,7 +129,8 @@ class PharmRecDynamics(nn.Module):
 
     def forward(self, pharm_h_t, pharm_x_t, pharm_mask, prot_h, prot_x,
                 prot_mask, t, pp_edge, pocket_group_size: int = 1,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                deterministic: Optional[bool] = None, pp_out=None):
         """pharm_h_t [B,F,nf], pharm_x_t [B,F,3], pharm_mask [B,F] bool,
         prot_h [B,P,rec_nf], prot_x [B,P,3], prot_mask [B,P] bool, t [B] in
         [0, 1]. `pp_edge` is the static prot-prot edge (EdgeData, or
@@ -122,18 +139,44 @@ class PharmRecDynamics(nn.Module):
         `pocket_group_size` = C > 1 declares that every C consecutive rows
         share one pocket and one t; the first conv then computes the
         prot-prot messages once per group. `generator` draws the dropout
-        masks in train mode."""
+        masks in train mode. `deterministic` is the JAX argument: eval
+        mode (no dropout), the default outside train mode; it must agree
+        with the module's mode. `pp_out` = (out_eid, out_mask) of
+        `edges.build_pp_out_edges` on the group-level pp edge turns the
+        pocket-copy correction on where the JAX package engages it
+        (dynamics.py:361-365)."""
+        if deterministic is None:
+            deterministic = not self.training
+        elif deterministic == self.training:
+            raise ValueError(f"deterministic={deterministic} in "
+                             f"{'train' if self.training else 'eval'} mode")
         b, f = pharm_mask.shape
         p = prot_mask.shape[1]
+        c = pocket_group_size
+        # the compact prot tail: the conv before the last is the last
+        # writer of prot state, which the last conv reads only through its
+        # pf lists (JAX dynamics.py:257-260)
+        compact_at = self.n_convs - 2 if (
+            self.compact_prot_tail and self.prune_dead_prot_tail
+            and self.n_convs >= 2 and self.pf_k and self.pf_k > 0
+            and deterministic) else None
         pmask = pharm_mask.to(pharm_x_t.dtype)[..., None]
-        rmask = prot_mask.to(prot_x.dtype)[..., None]
         pharm_scalars = self.pharm_encoder(torch.cat(
             [pharm_h_t, t[:, None, None].expand(b, f, 1)], dim=-1)) * pmask
+        # every consumer of the first conv's prot state reads it
+        # group-folded when that conv is the compact one, so the encoder
+        # runs once per pocket group (JAX dynamics.py:299-312)
+        prot_group = c if (self.dedup_prot_encoder and c > 1
+                           and compact_at == 0) else 1
+        ph, pm, tp = prot_h[::prot_group], prot_mask[::prot_group], \
+            t[::prot_group]
         prot_scalars = self.prot_encoder(torch.cat(
-            [prot_h, t[:, None, None].expand(b, p, 1)], dim=-1)) * rmask
+            [ph, tp[:, None, None].expand(-1, p, 1)], dim=-1)) \
+            * pm.to(prot_x.dtype)[..., None]
         # vector channels start at zero (dynamics_gvp.py:156-173)
         v_pharm = pharm_scalars.new_zeros(b, f, self.vector_size, 3)
-        v_prot = prot_scalars.new_zeros(b, p, self.vector_size, 3)
+        v_prot = prot_scalars.new_zeros(prot_scalars.shape[0], p,
+                                        self.vector_size, 3)
         node_feats: Dict[str, tuple] = {
             "pharm": (pharm_scalars, pharm_x_t, v_pharm),
             "prot": (prot_scalars, prot_x, v_prot),
@@ -142,13 +185,57 @@ class PharmRecDynamics(nn.Module):
         bundle = build_edge_bundle(pharm_x_t, pharm_mask, prot_x, prot_mask,
                                    self.cutoffs, ff_k=self.ff_k,
                                    pf_k=self.pf_k, pp_edge=pp_edge)
+        corr = None
+        if (pp_out is not None and c > 1 and compact_at is not None
+                and compact_at >= 2
+                and not message_norm_is_dynamic(self.message_norm)):
+            corr = dirty_slots(bundle["pf"], pp_out, c)
+        clean = None
         for i, conv in enumerate(self.noise_predictor.conv_layers):
-            node_feats = conv(
+            pf = bundle["pf"]
+            prot_dst_idx = pf.idx.reshape(b, -1) if i == compact_at else None
+            res = conv(
                 node_feats, node_masks, bundle, src_vectors_zero=(i == 0),
                 # prot state is copy-independent only before the first
                 # fp update lands
-                pp_src_group_size=pocket_group_size if i == 0 else 1,
-                generator=generator)
+                pp_src_group_size=c if i == 0 else 1,
+                generator=generator, prot_dst_idx=prot_dst_idx,
+                pf_src_group_size=prot_group if i == 0 else 1,
+                prot_feats_group_size=prot_group if i == 0 else 1,
+                emit_clean_prot=corr is not None and i == 0,
+                pp_correction=dict(corr, clean_h=clean[0],
+                                   clean_v=clean[1])
+                if corr is not None and i == 1 else None)
+            if corr is not None and i == 0:
+                node_feats, clean = res
+            else:
+                node_feats = res
+            if prot_dst_idx is not None:
+                # prot state is now compact: the last conv reads it through
+                # pf only, which becomes a reshape
+                bundle = dict(bundle, pf=PreGatheredEdgeData(
+                    mask=pf.mask, x_dir=pf.x_dir, d_rbf=pf.d_rbf))
         eps_h, eps_x = self.noise_predictor.noise_predictor(
             node_feats["pharm"][0], node_feats["pharm"][2])
         return eps_h * pmask, eps_x * pmask
+
+
+def dirty_slots(pf, pp_out, c: int) -> dict:
+    """The correction's per-copy inputs (JAX dynamics.py:366-383): the
+    pf-listed atoms of each row (slots [B, m]), valid and first in
+    their row (slot_mask), and their pp out-edges (out_eid / out_mask
+    [B, m, K_out]) from the group-level tables `pp_out`."""
+    b = pf.idx.shape[0]
+    slots = pf.idx.reshape(b, -1)
+    valid = pf.mask.reshape(b, -1)
+    m = slots.shape[1]
+    # a dirty atom listed twice contributes its corrections once
+    earlier = torch.ones(m, m, dtype=torch.bool,
+                         device=slots.device).tril(-1)
+    dup = torch.any((slots[:, :, None] == slots[:, None, :]) & earlier
+                    & valid[:, None, :], dim=2)
+    out_eid, out_mask = pp_out
+    rows = torch.arange(b, device=slots.device)[:, None] // c
+    return dict(slots=slots, slot_mask=valid & ~dup,
+                out_eid=out_eid[rows, slots],
+                out_mask=out_mask[rows, slots])

@@ -11,7 +11,9 @@ descriptor:
   pf/fp in radius mode).
 
 Edge geometry (unit direction, RBF) is computed once per denoiser call;
-the prot-prot edge once per sampling chain (translation invariant).
+the prot-prot edge once per sampling chain (translation invariant), and
+with it the pp edge's transpose (`build_pp_out_edges`), which the
+pocket-copy correction of the middle conv reads.
 """
 
 from __future__ import annotations
@@ -72,6 +74,18 @@ class GroupedEdgeData:
                         x_dir=rep(self.x_dir), d_rbf=rep(self.d_rbf))
 
 
+class PreGatheredEdgeData(NamedTuple):
+    """pf edges whose source prot table is already in pf-slot order: the
+    compact prot tail's conv updated only the F*K atoms the pf lists
+    reference, as a [B, F*K, ...] table whose row (f, k) is pharm f's k-th
+    neighbour, so the next conv's pf "gather" is a reshape. mask, x_dir
+    and d_rbf are the pf edge's ([B, F, K, ...])."""
+
+    mask: torch.Tensor
+    x_dir: torch.Tensor
+    d_rbf: torch.Tensor
+
+
 class ReverseEdgeData(NamedTuple):
     """fp edges on the pf layout: the source pharm IS the layout row, the
     destination prot is `idx`; geometry is pf's with x_dir negated.
@@ -105,6 +119,65 @@ def build_pp_edge(prot_x, prot_mask, cutoff: float, k_max: int
     """Prot-prot neighbor list + edge geometry (once per chain)."""
     nbrs = build_pp_neighbors(prot_x, prot_mask, cutoff, k_max)
     return nbrs, gathered_edge_data(prot_x, prot_x, nbrs)
+
+
+def max_pp_out_degree(ed) -> int:
+    """The largest number of valid (destination, slot) positions of a
+    gathered pp edge (idx/mask [G, P, K]) that reference one source atom.
+    Returns a Python int (one host sync)."""
+    g, p, k = ed.idx.shape
+    rows = torch.arange(g, device=ed.idx.device)[:, None, None] * p
+    flat = (rows + ed.idx.long())[ed.mask.bool()]
+    if flat.numel() == 0:
+        return 0
+    return int(torch.bincount(flat, minlength=g * p).max())
+
+
+def out_edge_tables(ed, k_out: int
+                    ) -> "tuple[torch.Tensor, torch.Tensor, int]":
+    """(out_eid, out_mask, maximum out-degree) of a gathered pp edge, the
+    edges of a source past its first `k_out` dropped, as the JAX package's
+    `build_pp_out_edges` drops them; `build_pp_out_edges` is the checked
+    entry."""
+    g, p, k = ed.idx.shape
+    e = p * k
+    dev = ed.idx.device
+    flat_idx = ed.idx.reshape(g, e).long()
+    valid = ed.mask.reshape(g, e).bool()
+    # a stable sort by source keeps each source's edge ids ascending;
+    # invalid edges sort last, into a dump source p
+    key = torch.where(valid, flat_idx, torch.full_like(flat_idx, p))
+    sorted_key, eid = torch.sort(key, dim=1, stable=True)
+    # rank of each edge within its source's run
+    first = torch.searchsorted(sorted_key, sorted_key, side="left")
+    pos = torch.arange(e, device=dev)[None] - first
+    real = sorted_key < p
+    degree = int(pos[real].max()) + 1 if bool(real.any()) else 0
+    keep = real & (pos < k_out)
+    out_eid = torch.zeros((g, p, k_out), dtype=torch.int64, device=dev)
+    out_mask = torch.zeros((g, p, k_out), dtype=torch.bool, device=dev)
+    gi = torch.arange(g, device=dev)[:, None].expand(g, e)
+    at = (gi[keep], sorted_key[keep], pos[keep])
+    out_eid[at] = eid[keep]
+    out_mask[at] = True
+    return out_eid, out_mask, degree
+
+
+def build_pp_out_edges(ed, k_out: int) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Transpose of a gathered pp edge: for every source atom, the flat edge
+    ids (dst * K + slot) that reference it, in ascending order.
+
+    ed.idx/mask [G, P, K] -> (out_eid [G, P, k_out] int64,
+    out_mask [G, P, k_out] bool), the JAX package's tables bit for bit.
+    The JAX version silently drops the edges of a source past its first
+    `k_out`; this one raises ValueError when `k_out` is below the maximum
+    out-degree (one host sync, once per chain)."""
+    out_eid, out_mask, degree = out_edge_tables(ed, k_out)
+    if k_out < degree:
+        raise ValueError(
+            f"pp_k_out={k_out} is below the pp edge's maximum out-degree "
+            f"{degree}: the pocket-copy correction would drop edges")
+    return out_eid, out_mask
 
 
 def build_edge_bundle(pharm_x, pharm_mask, prot_x, prot_mask, cutoffs,

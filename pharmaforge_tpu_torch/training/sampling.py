@@ -5,11 +5,13 @@ tiled into dense batches (`data.batch.tile_pocket`), chunked by
 `max_batch_size`, run through the reverse chain on the device, and split
 back into `SampledPharmacophore` objects that carry their pocket's
 receptor sites for the validity metric. Random draws come from an explicit
-`torch.Generator`.
+`torch.Generator`. Grouped batches probe the pocket-copy correction's
+`pp_k_out` once per device call (`probe_pp_k_out`).
 """
 
 from __future__ import annotations
 
+import os
 from math import ceil
 from typing import List, Optional, Sequence
 
@@ -24,7 +26,38 @@ from pharmaforge_tpu_torch.data.batch import (
     concat_batches,
     tile_pocket,
 )
+from pharmaforge_tpu_torch.models.conv import message_norm_is_dynamic
 from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
+from pharmaforge_tpu_torch.models.edges import (
+    build_pp_edge,
+    max_pp_out_degree,
+)
+
+
+def probe_pp_k_out(model: PharmacophoreDiffusion, prot_x_g,
+                   prot_mask_g) -> int:
+    """`pp_k_out` for the pocket-copy correction (JAX sampling.py:27): the
+    pp graph's maximum out-degree over the pocket-group representatives
+    (prot_x_g [G,P,3], prot_mask_g [G,P]), rounded up to a multiple of 8
+    and at least 8. Returns 0 (correction off) where it cannot engage:
+    fewer than 4 convs, no knn pf, a dynamic message norm, `fused_pp` off,
+    `PHARMAFORGE_PP_CORR=0`, or, a guard the JAX probe lacks, the compact
+    prot tail off (the correction runs only on top of it)."""
+    cfg = model.config
+    if os.environ.get("PHARMAFORGE_PP_CORR", "1") == "0":
+        return 0
+    if cfg.n_convs < 4 or not cfg.pf_k or cfg.pf_k <= 0:
+        return 0
+    if message_norm_is_dynamic(cfg.message_norm) or not cfg.fused_pp:
+        return 0
+    if not (cfg.compact_prot_tail and cfg.prune_dead_prot_tail):
+        return 0
+    dev = model.device
+    _, ed = build_pp_edge(
+        torch.as_tensor(np.asarray(prot_x_g, np.float32), device=dev),
+        torch.as_tensor(np.asarray(prot_mask_g, bool), device=dev),
+        float(model.cutoffs["pp"]), int(cfg.pp_k_max))
+    return max(8, -(-max_pp_out_degree(ed) // 8) * 8)
 
 
 def _site_types(pocket: dict):
@@ -55,11 +88,20 @@ class PocketSampler:
         # dense output of the last device call (numpy), for inspection
         self.last_output: Optional[dict] = None
 
+    def _pp_k_out(self, batch, group: int) -> int:
+        """`probe_pp_k_out` over the batch's pocket-group representatives;
+        0 for ungrouped batches."""
+        if group <= 1:
+            return 0
+        return probe_pp_k_out(self.model, batch.prot_x[::group],
+                              batch.prot_mask[::group])
+
     def _run(self, batch, generator, com, group: int,
              visualize: bool = False) -> dict:
         out = self.model.sample_given_receptor(
             batch, generator=generator, init_pharm_com=com,
-            visualize_trajectory=visualize, pocket_group_size=group)
+            visualize_trajectory=visualize, pocket_group_size=group,
+            pp_k_out=self._pp_k_out(batch, group))
         out = {k: v.cpu().numpy() for k, v in out.items()}
         self.last_output = out
         return out

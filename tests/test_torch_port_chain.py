@@ -5,7 +5,7 @@
 * a random-init JAX chain against the port's chain, weights carried by
   `params_from_jax`, noise injected on both sides, within 2e-3;
 * pocket-group dedup against the ungrouped chain, the host-side sampler,
-  the options this slice does not port, and the port's import and device
+  the options the port lacks or refuses, and the port's import and device
   contracts.
 """
 
@@ -197,9 +197,12 @@ def test_unported_options_raise():
     for kw in (dict(compute_dtype="bfloat16"), dict(fused_pp=True),
                dict(n_convs=4), dict(n_convs=4, fused_pp=False)):
         small_model(**kw)
+    # the pocket-copy correction is ported: a pp_k_out below the pp
+    # graph's maximum out-degree raises instead of dropping edges
     batch, noise, _ = chain_inputs(np.random.default_rng(0), t_steps=12)
-    with pytest.raises(NotImplementedError):
-        small_model().sample_given_receptor(batch, noise=noise, pp_k_out=8)
+    with pytest.raises(ValueError, match="out-degree"):
+        small_model().sample_given_receptor(batch, noise=noise,
+                                            pocket_group_size=2, pp_k_out=1)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -457,9 +457,11 @@ def test_full_scale_config_is_supported_but_pp_k_out_raises(rng):
     convs = model.dynamics.noise_predictor.conv_layers
     assert all(c.fused_pp and c.dtype == torch.bfloat16 for c in convs)
     batch, noise, _ = pockets_batch(rng)
-    with pytest.raises(NotImplementedError, match="pp_k_out"):
+    # the correction is ported; a pp_k_out below the pp graph's maximum
+    # out-degree raises rather than drop edges
+    with pytest.raises(ValueError, match="pp_k_out"):
         model.sample_given_receptor(batch, noise=noise, pocket_group_size=3,
-                                    pp_k_out=8)
+                                    pp_k_out=1)
 
 
 @pytest.mark.parametrize("n_convs,fused_pp,calls", [
@@ -469,7 +471,8 @@ def test_fused_branch_runs_on_the_middle_convs_only(rng, monkeypatch,
                                                     calls):
     """The JAX gate (conv.py:850-852): a gathered pp edge, nonzero source
     vectors, no pocket-group dedup -- convs 1 .. n-2, grouped pp edges
-    passed through at group level."""
+    passed through at group level, except on the compact conv (n-2),
+    whose call takes the 6 copies' F*K compact slots (copies=1)."""
     seen = []
 
     def spy(*args, **kw):
@@ -481,4 +484,5 @@ def test_fused_branch_runs_on_the_middle_convs_only(rng, monkeypatch,
         n_convs=n_convs, fused_pp=fused_pp, n_timesteps=2)), device="cpu")
     batch, noise, _ = pockets_batch(rng, t_steps=2)
     model.sample_given_receptor(batch, noise=noise, pocket_group_size=3)
-    assert seen == [(3, 2)] * (2 * calls)    # 2 steps, G=2 groups x 3
+    step = [(3, 2)] * (calls - 1) + [(1, 6)] if calls else []
+    assert seen == step * 2                  # 2 steps, G=2 groups x 3
