@@ -99,6 +99,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -115,6 +116,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 CHAIN_TOL = 2e-3          # the JAX package's full-chain tolerance
+# the JAX package's fused-vs-unfused conv output tolerance
+# (tests/test_pp_fused.py:143-148)
+CONV_TOL = dict(rtol=2e-4, atol=2e-5)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) op/s,
 # dense bf16 tensor-core op/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -576,16 +580,23 @@ def stacked_k_out(model, pockets, atoms: int) -> int:
     return probe_pp_k_out(model, px, pm)
 
 
-def chain_on(model, cfg, batch, noise, dev=None) -> tuple:
+def chain_on(model, cfg, batch, noise, dev=None,
+             capture: list | None = None) -> tuple:
     """The injected-noise chain of `model`'s weights under `cfg` for the
     one-pocket `batch`, on `dev` (the model's device by default), grouped
     with the probed `pp_k_out`: (final pharm_x, launch counts, correction
-    passes, k_out)."""
+    passes, k_out). `capture` collects the second conv's prot output
+    (scalars, vectors) of every step: the state the pocket-copy
+    correction writes."""
     from pharmaforge_tpu_torch.models import conv
     from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
     from pharmaforge_tpu_torch.training.sampling import probe_pp_k_out
     m = PharmacophoreDiffusion(cfg, device=dev or model.device)
     m.load_state_dict(model.state_dict())
+    if capture is not None:
+        m.dynamics.noise_predictor.conv_layers[1].register_forward_hook(
+            lambda mod, args, out: capture.append(
+                (out["prot"][0].cpu(), out["prot"][2].cpu())))
     k_out = probe_pp_k_out(m, batch.prot_x[:1], batch.prot_mask[:1])
     reset_launches()
     out = m.sample_given_receptor(batch, noise=noise,
@@ -594,6 +605,45 @@ def chain_on(model, cfg, batch, noise, dev=None) -> tuple:
     if m.device.type == "cuda":
         torch.cuda.synchronize()
     return out["pharm_x"].cpu(), read_launches(), conv.corrections, k_out
+
+
+def conv_state_err(want: list, got: list) -> tuple:
+    """(max |got - want|, max of |got - want| - (atol + rtol |want|)) over
+    the captured second-conv prot states of two chains, step by step."""
+    check(len(want) == len(got) > 0, f"captured {len(want)} and "
+                                     f"{len(got)} second-conv states")
+    err, over = 0.0, -np.inf
+    for w_step, g_step in zip(want, got):
+        for w, g in zip(w_step, g_step):
+            d = (g - w).abs()
+            err = max(err, float(d.max()))
+            over = max(over, float((d - CONV_TOL["atol"]
+                                    - CONV_TOL["rtol"] * w.abs()).max()))
+    return err, over
+
+
+@contextlib.contextmanager
+def correction_dropped(deltas: list):
+    """A planted fault: every pocket-copy correction pass returns the clean
+    aggregate alone (the dirty atoms' slots masked, so the scatter adds
+    nothing). `deltas` collects, per pass, the largest |change| that the
+    correction makes to the normalized aggregate."""
+    from pharmaforge_tpu_torch.models.conv import GVPMultiEdgeConv
+    real = GVPMultiEdgeConv._fused_pp_corrected
+
+    def dropped(self, chain, h_src, v_src, ed, copies, corr):
+        good = real(self, chain, h_src, v_src, ed, copies, corr)
+        bad = real(self, chain, h_src, v_src, ed, copies, dict(
+            corr, slot_mask=torch.zeros_like(corr["slot_mask"])))
+        deltas.append(max(float((a - b).abs().max())
+                          for a, b in zip(good[:2], bad[:2])))
+        return bad
+
+    GVPMultiEdgeConv._fused_pp_corrected = dropped
+    try:
+        yield
+    finally:
+        GVPMultiEdgeConv._fused_pp_corrected = real
 
 
 def phase_sampling(name: str, dev, cfg, n_pockets: int, per_pocket: int,
@@ -666,8 +716,9 @@ def phase_sampling(name: str, dev, cfg, n_pockets: int, per_pocket: int,
              "pos": rng.normal(size=(cmp_steps, b, 8, 3)),
              "feat": rng.normal(size=(cmp_steps, b, 8, 6))}
     noise = {k: v.astype(np.float32) for k, v in noise.items()}
+    mine: list = []
     on_card, cmp_launches, cmp_corr, cmp_k = chain_on(model, cmp_cfg, batch,
-                                                      noise)
+                                                      noise, capture=mine)
     check(cmp_launches == expected_launches(cmp_cfg, cmp_k > 0)
           and cmp_corr == (cmp_steps if cmp_k else 0)
           and (cmp_k > 0) == (k_out > 0),
@@ -679,24 +730,50 @@ def phase_sampling(name: str, dev, cfg, n_pockets: int, per_pocket: int,
                                f"by {cpu_dev:.3e} >= {CHAIN_TOL}")
     versus = ""
     if other is not None:
-        # the other sampling path with the same weights and noise: fp32
-        # within the chain tolerance, bf16 printed
+        # the other sampling path with the same weights and noise: final
+        # coords in fp32 within the chain tolerance, bf16 printed; the
+        # second conv's prot state (what the correction writes) at every
+        # step within the conv tolerance
+        theirs, faulty, deltas = [], [], []
         alt = chain_on(model, dataclasses.replace(cmp_cfg, **other), batch,
-                       noise)
+                       noise, capture=theirs)
         alt_dev = float((on_card - alt[0]).abs().max())
         check(alt_dev < CHAIN_TOL and (alt[3] > 0) != (cmp_k > 0)
               and alt[2] == (cmp_steps if alt[3] else 0),
               f"{name}: against {other} (k_out {alt[3]}, {alt[2]} "
               f"correction passes) final coords differ by {alt_dev:.3e} "
               f"(tolerance {CHAIN_TOL})")
+        conv_err, conv_over = conv_state_err(mine, theirs)
+        check(conv_over <= 0, f"{name}: against {other} the second conv's "
+                              f"prot state differs by {conv_err:.3e}, "
+                              f"beyond {CONV_TOL}")
+        # the check must see a broken correction: the other path with the
+        # correction's scatter dropped falls outside the conv tolerance
+        with correction_dropped(deltas):
+            fault = chain_on(model, dataclasses.replace(cmp_cfg, **other),
+                             batch, noise, capture=faulty)
+        fault_err, fault_over = conv_state_err(mine, faulty)
+        fault_dev = float((on_card - fault[0]).abs().max())
+        check(bool(deltas) and fault_over > 0,
+              f"{name}: with the correction dropped ({len(deltas)} passes) "
+              f"the second conv's prot state differs by {fault_err:.3e}, "
+              f"within {CONV_TOL}: the comparison cannot see it")
         bf16 = [chain_on(model, dataclasses.replace(
                     cmp_cfg, compute_dtype="bfloat16", **o), batch, noise)[0]
                 for o in ({}, other)]
         versus = (f"; against the path {other} on the card (same weights "
                   f"and noise, k_out {alt[3]}, {alt[2]} correction "
-                  f"passes): fp32 max|dx| {alt_dev:.3e} "
-                  f"(tolerance {CHAIN_TOL}), bf16 max|dx| "
-                  f"{float((bf16[0] - bf16[1]).abs().max()):.3e}")
+                  f"passes): fp32 final coords max|dx| {alt_dev:.3e} "
+                  f"(tolerance {CHAIN_TOL}), the second conv's prot state "
+                  f"over {cmp_steps} steps max|d| {conv_err:.3e} "
+                  f"(tolerance {CONV_TOL}), bf16 final coords max|dx| "
+                  f"{float((bf16[0] - bf16[1]).abs().max()):.3e}; planted "
+                  f"fault, that path with the correction dropped: the "
+                  f"second conv's prot state max|d| {fault_err:.3e}, final "
+                  f"coords max|dx| {fault_dev:.3e}; the correction's "
+                  f"largest change to a normalized pp aggregate per pass "
+                  f"{max(deltas):.3e} (median "
+                  f"{float(np.median(deltas)):.3e})")
     print(f"{name}: B={n_pockets * per_pocket} T={cfg.n_timesteps} "
           f"n_convs={cfg.n_convs} {cfg.compute_dtype} compact tail "
           f"{cfg.compact_prot_tail} k_out {k_out} on {card()}: samples/s "
@@ -935,28 +1012,36 @@ def correction_case(dev, ed, prot_x, prot_mask, copies: int) -> tuple:
 
 
 def pp_bound(args, kw) -> tuple:
-    """(bytes, operations, edge rows) of one K2 call: the kernel's inputs
-    read once (tables, group-level idx/mask/rterm/dirterm, packed weights)
-    and its fp32 outputs written once; two operations per multiply-add of
-    the chain over the edge rows whose mask is set."""
+    """(bytes, operations, edge rows) of one K2 wrapper call, counting what
+    this call's data needs: the tables and the weights read once, idx and
+    mask of every group-level slot, x_dir and d_rbf of the slots whose
+    mask is set (a masked slot's geometry is never used), and the fp32
+    outputs written once; two operations per multiply-add of the edge
+    terms over the valid group-level slots and of the chain over the valid
+    edge rows."""
     from pharmaforge_tpu_torch.ops import pp_message as ppm
     pre_s, planes, edge, chain = args
     s, v, copies = kw["scalar_size"], kw["vector_size"], kw["copies"]
+    r = kw["rbf_dim"]
     b, p, _ = pre_s.shape
     g, nd, k = edge.mask.shape
     h0 = planes[0].shape[-1]
-    w = ppm.split_weights(chain, s, kw["rbf_dim"])
+    w = ppm.split_weights(chain, s, r)
     hj = w[7].shape[1]
     n_j = (len(w) - 7) // 7
-    elem = pre_s.element_size()
-    packed = sum(a.numel() for i, a in enumerate(w) if i not in (0, 2, 4))
-    n_bytes = (elem * (b * p * s + b * p * 3 * h0 + g * nd * k * (s + 3 * h0)
-                       + packed)
-               + 8 * g * nd * k + 4 * b * nd * (s + 3 * v))
+    valid = int(edge.mask.sum())
+    n_bytes = (pre_s.numel() * pre_s.element_size()
+               + sum(a.numel() * a.element_size() for a in planes)
+               + sum(a.numel() * a.element_size() for a in w)
+               + g * nd * k * (edge.idx.element_size()
+                               + edge.mask.element_size())
+               + valid * (3 * edge.x_dir.element_size()
+                          + r * edge.d_rbf.element_size())
+               + 4 * b * nd * (s + 3 * v))
     macs = (h0 * s + s * v + 3 * h0 * v
             + n_j * (3 * v * hj + s * s + hj * s + s * v + 3 * hj * v))
-    rows = int(edge.mask.sum()) * copies
-    return n_bytes, 2 * macs * rows, rows
+    rows = valid * copies
+    return n_bytes, 2 * (macs * rows + (r * s + 3 * h0) * valid), rows
 
 
 def compare(name, got, want, tol) -> float:
@@ -1234,11 +1319,13 @@ def ppbwd_compare(name, got, want, dtype, bound=None) -> float:
 
 
 def ppbwd_bound(args, kw) -> tuple:
-    """(bytes, operations, edge rows) of one K3 call: its inputs read once
-    (K2's inputs, the raw geometry, the fp32 cotangents) and its outputs
+    """(bytes, operations, edge rows) of one K3 call, counting what this
+    call's data needs: the node tables and weights read once in the compute
+    dtype, idx and mask of every group-level slot, x_dir and d_rbf of the
+    slots whose mask is set, the fp32 cotangents read once, and its outputs
     written once (fp32 node tables, fp64 weight gradients); two operations
-    per multiply-add of the chain's
-    recompute and backward over the edge rows whose mask is set."""
+    per multiply-add of the chain's recompute and backward over the edge
+    rows whose mask is set."""
     from pharmaforge_tpu_torch.ops import pp_message as ppm
     pre_s, planes, edge, chain = args
     s, v, r = kw["scalar_size"], kw["vector_size"], kw["rbf_dim"]
@@ -1250,17 +1337,20 @@ def ppbwd_bound(args, kw) -> tuple:
     hj = w[7].shape[1]
     n_j = (len(w) - 7) // 7
     elem = ppm.COMPUTE_DTYPES[kw["compute_dtype"]].itemsize
-    packed = sum(a.numel() for i, a in enumerate(w) if i not in (0, 2, 4))
     grads = sum(a.numel() for a in w)
-    n_bytes = (elem * (b * p * (s + 3 * h0)
-                       + g * nd * k * (s + 3 * h0 + r + 3) + packed)
-               + 8 * g * nd * k + 4 * b * nd * (s + 3 * v)
+    valid = int(edge.mask.sum())
+    n_bytes = (elem * (b * p * (s + 3 * h0) + grads)
+               + g * nd * k * (edge.idx.element_size()
+                               + edge.mask.element_size())
+               + valid * (3 * edge.x_dir.element_size()
+                          + r * edge.d_rbf.element_size())
+               + 4 * b * nd * (s + 3 * v)
                + 4 * b * p * (s + 3 * h0) + 8 * grads)
     fwd = (h0 * s + s * v + 3 * h0 * v
            + n_j * (3 * v * hj + s * s + hj * s + s * v + 3 * hj * v))
     bwd = (2 * s * v + 6 * h0 * v + r * s + 2 * h0 * s + 3 * h0
            + n_j * (2 * s * v + 12 * v * hj + 2 * s * s + 2 * hj * s))
-    rows = int(edge.mask.sum()) * copies
+    rows = valid * copies
     return n_bytes, 2 * (fwd + bwd) * rows, rows
 
 

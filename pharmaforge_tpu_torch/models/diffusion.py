@@ -290,8 +290,7 @@ class PharmacophoreDiffusion(nn.Module):
 
         h_dyn, x_dyn = self.dynamics(h_t, x_t, pharm_mask, prot_h, prot_x,
                                      prot_mask, t, pp_edge=pp_edge,
-                                     generator=generator,
-                                     deterministic=not train)
+                                     generator=generator)
 
         # losses (pharmacodiff.py:204-232)
         if cfg.endpoint_param_feat:
@@ -447,7 +446,7 @@ class PharmacophoreDiffusion(nn.Module):
             pred_h, pred_x = self.dynamics(
                 h_t, x_t, pharm_mask, prot_h, prot_x, prot_mask, t_arr,
                 pp_edge=pp_edge, pocket_group_size=pocket_group_size,
-                deterministic=True, pp_out=pp_out)
+                pp_out=pp_out)
             if cfg.endpoint_param_coord:
                 mu_pos = c_x * x_t + c_pred * pred_x
             else:

@@ -129,8 +129,7 @@ class PharmRecDynamics(nn.Module):
 
     def forward(self, pharm_h_t, pharm_x_t, pharm_mask, prot_h, prot_x,
                 prot_mask, t, pp_edge, pocket_group_size: int = 1,
-                generator: Optional[torch.Generator] = None,
-                deterministic: Optional[bool] = None, pp_out=None):
+                generator: Optional[torch.Generator] = None, pp_out=None):
         """pharm_h_t [B,F,nf], pharm_x_t [B,F,3], pharm_mask [B,F] bool,
         prot_h [B,P,rec_nf], prot_x [B,P,3], prot_mask [B,P] bool, t [B] in
         [0, 1]. `pp_edge` is the static prot-prot edge (EdgeData, or
@@ -139,17 +138,10 @@ class PharmRecDynamics(nn.Module):
         `pocket_group_size` = C > 1 declares that every C consecutive rows
         share one pocket and one t; the first conv then computes the
         prot-prot messages once per group. `generator` draws the dropout
-        masks in train mode. `deterministic` is the JAX argument: eval
-        mode (no dropout), the default outside train mode; it must agree
-        with the module's mode. `pp_out` = (out_eid, out_mask) of
-        `edges.build_pp_out_edges` on the group-level pp edge turns the
-        pocket-copy correction on where the JAX package engages it
-        (dynamics.py:361-365)."""
-        if deterministic is None:
-            deterministic = not self.training
-        elif deterministic == self.training:
-            raise ValueError(f"deterministic={deterministic} in "
-                             f"{'train' if self.training else 'eval'} mode")
+        masks in train mode; eval mode is the JAX `deterministic=True`.
+        `pp_out` = (out_eid, out_mask) of `edges.build_pp_out_edges` on the
+        group-level pp edge turns the pocket-copy correction on where the
+        JAX package engages it (dynamics.py:361-365)."""
         b, f = pharm_mask.shape
         p = prot_mask.shape[1]
         c = pocket_group_size
@@ -159,7 +151,7 @@ class PharmRecDynamics(nn.Module):
         compact_at = self.n_convs - 2 if (
             self.compact_prot_tail and self.prune_dead_prot_tail
             and self.n_convs >= 2 and self.pf_k and self.pf_k > 0
-            and deterministic) else None
+            and not self.training) else None
         pmask = pharm_mask.to(pharm_x_t.dtype)[..., None]
         pharm_scalars = self.pharm_encoder(torch.cat(
             [pharm_h_t, t[:, None, None].expand(b, f, 1)], dim=-1)) * pmask

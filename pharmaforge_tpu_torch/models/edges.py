@@ -133,12 +133,20 @@ def max_pp_out_degree(ed) -> int:
     return int(torch.bincount(flat, minlength=g * p).max())
 
 
-def out_edge_tables(ed, k_out: int
-                    ) -> "tuple[torch.Tensor, torch.Tensor, int]":
-    """(out_eid, out_mask, maximum out-degree) of a gathered pp edge, the
-    edges of a source past its first `k_out` dropped, as the JAX package's
-    `build_pp_out_edges` drops them; `build_pp_out_edges` is the checked
-    entry."""
+def build_pp_out_edges(ed, k_out: int) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Transpose of a gathered pp edge: for every source atom, the flat edge
+    ids (dst * K + slot) that reference it, in ascending order.
+
+    ed.idx/mask [G, P, K] -> (out_eid [G, P, k_out] int64,
+    out_mask [G, P, k_out] bool), the JAX package's tables bit for bit.
+    The JAX version silently drops the edges of a source past its first
+    `k_out`; this one raises ValueError when `k_out` is below the maximum
+    out-degree (one host sync, once per chain)."""
+    degree = max_pp_out_degree(ed)
+    if k_out < degree:
+        raise ValueError(
+            f"pp_k_out={k_out} is below the pp edge's maximum out-degree "
+            f"{degree}: the pocket-copy correction would drop edges")
     g, p, k = ed.idx.shape
     e = p * k
     dev = ed.idx.device
@@ -152,31 +160,12 @@ def out_edge_tables(ed, k_out: int
     first = torch.searchsorted(sorted_key, sorted_key, side="left")
     pos = torch.arange(e, device=dev)[None] - first
     real = sorted_key < p
-    degree = int(pos[real].max()) + 1 if bool(real.any()) else 0
-    keep = real & (pos < k_out)
     out_eid = torch.zeros((g, p, k_out), dtype=torch.int64, device=dev)
     out_mask = torch.zeros((g, p, k_out), dtype=torch.bool, device=dev)
     gi = torch.arange(g, device=dev)[:, None].expand(g, e)
-    at = (gi[keep], sorted_key[keep], pos[keep])
-    out_eid[at] = eid[keep]
+    at = (gi[real], sorted_key[real], pos[real])
+    out_eid[at] = eid[real]
     out_mask[at] = True
-    return out_eid, out_mask, degree
-
-
-def build_pp_out_edges(ed, k_out: int) -> "tuple[torch.Tensor, torch.Tensor]":
-    """Transpose of a gathered pp edge: for every source atom, the flat edge
-    ids (dst * K + slot) that reference it, in ascending order.
-
-    ed.idx/mask [G, P, K] -> (out_eid [G, P, k_out] int64,
-    out_mask [G, P, k_out] bool), the JAX package's tables bit for bit.
-    The JAX version silently drops the edges of a source past its first
-    `k_out`; this one raises ValueError when `k_out` is below the maximum
-    out-degree (one host sync, once per chain)."""
-    out_eid, out_mask, degree = out_edge_tables(ed, k_out)
-    if k_out < degree:
-        raise ValueError(
-            f"pp_k_out={k_out} is below the pp edge's maximum out-degree "
-            f"{degree}: the pocket-copy correction would drop edges")
     return out_eid, out_mask
 
 

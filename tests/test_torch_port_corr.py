@@ -73,23 +73,20 @@ def pp_graph(seed, g=3, p=17, k=5):
                                         (2, 2, 23, 7), (3, 1, 40, 16)])
 @pytest.mark.parametrize("extra", [2, 0, -1])
 def test_out_edges_bit_equal_to_jax(seed, g, p, k, extra):
-    """`k_out` above, at and (through `out_edge_tables`, which drops the
-    overflow as JAX does) below the maximum out-degree."""
+    """`k_out` above and at the maximum out-degree: JAX's tables; below
+    it, where JAX drops the overflow, the port raises."""
     jed, ted = pp_graph(seed, g, p, k)
     degree = tedges.max_pp_out_degree(ted)
     assert degree == int(jedges.max_pp_out_degree(jed)) > 1
     k_out = degree + extra
-    want = jedges.build_pp_out_edges(jed, k_out)
-    eid, emask, deg = tedges.out_edge_tables(ted, k_out)
-    assert deg == degree
-    np.testing.assert_array_equal(emask.numpy(), np.asarray(want[1]))
-    np.testing.assert_array_equal(eid.numpy(), np.asarray(want[0]))
-    if extra >= 0:
-        got = tedges.build_pp_out_edges(ted, k_out)
-        assert all(torch.equal(a, b) for a, b in zip(got, (eid, emask)))
-    else:
+    if extra < 0:
         with pytest.raises(ValueError, match="out-degree"):
             tedges.build_pp_out_edges(ted, k_out)
+        return
+    want = jedges.build_pp_out_edges(jed, k_out)
+    eid, emask = tedges.build_pp_out_edges(ted, k_out)
+    np.testing.assert_array_equal(emask.numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(eid.numpy(), np.asarray(want[0]))
 
 
 # ---------------------------------------------------------------- probe
@@ -188,8 +185,7 @@ def test_compact_forward_matches_jax_and_full_width(rng, message_norm,
         model = PharmacophoreDiffusion(cfg, device="cpu")
         model.load_state_dict(params_from_jax(params, cfg))
         with torch.no_grad():
-            outs[on] = model.dynamics(*args, pp_edge=pp_t,
-                                      deterministic=True)
+            outs[on] = model.dynamics(*args, pp_edge=pp_t)
     for got, full, w in zip(outs[True], outs[False], want):
         np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=2e-4,
                                    rtol=0)
@@ -197,11 +193,41 @@ def test_compact_forward_matches_jax_and_full_width(rng, message_norm,
                                    atol=1e-6)
 
 
-def test_deterministic_must_agree_with_the_mode():
-    model = PharmacophoreDiffusion(DiffusionConfig(**compact_kw()),
-                                   device="cpu")
-    with pytest.raises(ValueError, match="deterministic"):
-        model.dynamics(*(None,) * 7, pp_edge=None, deterministic=False)
+@pytest.mark.parametrize("fault,match", [
+    ("train", "eval mode"), ("ungrouped", "grouped, non-compact"),
+    ("dynamic norm", "non-dynamic")])
+def test_emit_clean_prot_keeps_the_jax_checks(rng, monkeypatch, fault,
+                                              match):
+    """The first conv of the correction, called again on its own inputs
+    in train mode, on a per-copy pp edge or with a dynamic norm, raises
+    as the JAX conv does (conv.py:862-957)."""
+    copies = 3
+    batch = grouped_batch(rng, copies=copies)
+    model = PharmacophoreDiffusion(
+        DiffusionConfig(**probe_kw(n_timesteps=1)), device="cpu",
+        generator=torch.Generator().manual_seed(2))
+    seen = []
+    real = tconv.GVPMultiEdgeConv.forward
+
+    def spy(self, node_feats, node_masks, bundle, **kw):
+        if kw.get("emit_clean_prot"):
+            seen.append((self, node_feats, node_masks, bundle, dict(kw)))
+        return real(self, node_feats, node_masks, bundle, **kw)
+
+    monkeypatch.setattr(tconv.GVPMultiEdgeConv, "forward", spy)
+    model.sample_given_receptor(batch, noise=chain_noise(rng, batch, 1),
+                                pocket_group_size=copies, pp_k_out=16)
+    assert len(seen) == 1
+    conv, node_feats, node_masks, bundle, kw = seen[0]
+    real(conv, node_feats, node_masks, bundle, **kw)
+    if fault == "train":
+        conv.train()
+    elif fault == "ungrouped":
+        kw["pp_src_group_size"] = 1
+    else:
+        monkeypatch.setitem(conv.norm_values, "prot", 0.0)
+    with pytest.raises(ValueError, match=match), torch.no_grad():
+        real(conv, node_feats, node_masks, bundle, **kw)
 
 
 # ------------------------------------------------------ the correction
