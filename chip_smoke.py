@@ -90,7 +90,21 @@ Phases, one line each; any failure raises and the script exits non-zero:
                 checkpoint round trip, train steps/s; and one fp32 step at
                 dropout 0 on the card and on the CPU from the same weights
                 and injected noise (loss within rtol 1e-5, gradients per
-                leaf within 2e-4 max|b| + 2e-5).
+                leaf within 2e-4 max|b| + 2e-5);
+9. cli       -- the port's three CLIs through `main(argv)` in this process,
+                the reference-size model (`cli_config`): the train CLI
+                writes its synthetic set (3 x 32 pockets) and fits one
+                epoch, then resumes for a second (exactly 1 K1, 2 K2 and 2
+                K3 launches per optimizer step, the step count going on,
+                config.yaml read back as the merged config); the run is
+                exported as a reference `.ckpt` whose weights read back
+                bit-equal; the test CLI samples 4 validation pockets x 8 in
+                one stacked T=1000 fp32 chain and the generate CLI the
+                realchem aspirin pocket x 30 in one bf16 T=1000 chain from
+                that `.ckpt`, each with its artifacts, finite centres of
+                3-8 typed by the 6-type map, and exactly the K1 and K2
+                launches of `expected_launches` for the probed k_out; the
+                wall of each CLI with the card's name and power limit.
 
 Then the card's name and power limit, the `kernels` JSON line, and the
 final `{"ok": true, ...}` line. Without CUDA it exits 1 and prints no
@@ -105,6 +119,7 @@ import dataclasses
 import functools
 import hashlib
 import json
+import pickle
 import subprocess
 import sys
 import time
@@ -330,6 +345,13 @@ def knn_check(name: str, args, k: int) -> float:
     torch.cuda.synchronize()
     check(ks.launches == before + 2, f"knn {name}: knn_pf_edges did not "
                                      f"launch the kernel once")
+    return knn_pf_compare(name, got, want)
+
+
+def knn_pf_compare(name: str, got, want) -> float:
+    """`knn_pf_edges`' outputs against its plain version's: idx and mask
+    bit-equal, the geometry within KNN_GEOM_ATOL. Returns the geometry's
+    max abs error."""
     worst = 0.0
     for label, g, w in zip(("idx", "mask", "x_dir", "x_dir_fp", "d_rbf"),
                            got, want):
@@ -1679,6 +1701,360 @@ def phase_train(dev, profile: bool = False, config_fn=train_config,
     return fit_launches
 
 
+# -------------------------------------------------------------------- cli
+
+REALCHEM = ROOT / "tests" / "fixtures" / "realchem"
+
+
+def cli_config(tmp: Path) -> dict:
+    """`train_config`'s reference-size model as a run config of the train
+    CLI: one epoch over a synthetic set of 3 x 32 pockets that the CLI
+    writes itself (`dataset.synthetic`, `dataset_size` 96), no sampling
+    evaluation inside the epoch."""
+    config = train_config(str(tmp / "data"), max_epochs=1)
+    config["training"]["output_dir"] = str(tmp / "runs")
+    config["training"]["evaluation"]["sample_interval"] = 0
+    config["dataset"].update(synthetic=True, dataset_size=96,
+                             pocket_cutoff=8)
+    config["wandb"]["name"] = "cli"
+    return config
+
+
+@contextlib.contextmanager
+def cli_counters(per_step: list, k_outs: list):
+    """Inside the block, each optimizer step's launches go to `per_step`
+    (as `count_steps` does, for the trainers a CLI builds) and each
+    `pp_k_out` that `PocketSampler` probes to `k_outs`."""
+    from pharmaforge_tpu_torch.training.sampling import PocketSampler
+    from pharmaforge_tpu_torch.training.trainer import Trainer
+    real_step, real_probe = Trainer.train_step, PocketSampler._pp_k_out
+
+    def step(self, batch):
+        before = read_launches()
+        out = real_step(self, batch)
+        after = read_launches()
+        per_step.append({k: after[k] - before[k] for k in after})
+        return out
+
+    def probe(self, batch, group):
+        k_outs.append(real_probe(self, batch, group))
+        return k_outs[-1]
+
+    Trainer.train_step, PocketSampler._pp_k_out = step, probe
+    try:
+        yield
+    finally:
+        Trainer.train_step, PocketSampler._pp_k_out = real_step, real_probe
+
+
+@contextlib.contextmanager
+def cli_kernel_calls(calls: dict):
+    """Inside the block, the denoiser's first `knn_pf_edges` call and the
+    first `fused_message_agg` call of each K2 layout (dtype, shapes,
+    copies) go to `calls`, with copies of their card inputs and outputs,
+    for `check_cli_kernels` to hold against the plain versions after the
+    run. The capture adds no launch."""
+    from pharmaforge_tpu_torch.models import conv, edges
+    real_knn, real_k2 = edges.knn_pf_edges, conv.fused_message_agg
+
+    def keep(x):
+        return x.detach().clone() if torch.is_tensor(x) else x
+
+    def knn(*args):
+        out = real_knn(*args)
+        if "knn" not in calls:
+            calls["knn"] = ([keep(a) for a in args], [keep(o) for o in out])
+        return out
+
+    def k2(pre_s, planes, ed, chain, **kw):
+        out = real_k2(pre_s, planes, ed, chain, **kw)
+        (b, p, _), (g, nd, k) = pre_s.shape, ed.mask.shape
+        key = (f"{kw['compute_dtype']} B={b} P={p} G={g} Nd={nd} K={k} "
+               f"copies={kw['copies']}")
+        if key not in calls:
+            calls[key] = ((keep(pre_s), [keep(v) for v in planes],
+                           type(ed)(*(keep(t) for t in ed)), chain), kw,
+                          [keep(o) for o in out])
+        return out
+
+    edges.knn_pf_edges, conv.fused_message_agg = knn, k2
+    try:
+        yield
+    finally:
+        edges.knn_pf_edges, conv.fused_message_agg = real_knn, real_k2
+
+
+def check_cli_kernels(name: str, calls: dict, layouts: int) -> dict:
+    """The calls `cli_kernel_calls` kept in one chain, each held against
+    its plain version on the same card tensors: K1 as `phase_knn` holds it
+    (idx and mask bit-equal, geometry within KNN_GEOM_ATOL), each of the
+    `layouts` K2 layouts within PP_TOL of its compute dtype. Returns the
+    max abs errors."""
+    from pharmaforge_tpu_torch.ops import knn_select as ks
+    from pharmaforge_tpu_torch.ops import pp_message as ppm
+    calls = dict(calls)
+    check("knn" in calls and len(calls) == layouts + 1,
+          f"cli {name}: kept {list(calls)}, expected K1 and {layouts} K2 "
+          f"layouts")
+    with torch.no_grad():
+        args, got = calls.pop("knn")
+        errs = {"K1 pf geometry": knn_pf_compare(
+            f"cli {name}", got, ks.knn_pf_edges_reference(*args))}
+        for key, (args, kw, got) in calls.items():
+            want = ppm.message_agg_reference(*args, **kw)
+            errs[f"K2 {key}"] = compare(f"cli {name} {key}", got, want,
+                                        PP_TOL[kw["compute_dtype"]])
+    return errs
+
+
+def chain_seconds(pocket_dir: Path) -> float:
+    """A pocket's sampling time as the CLI measured it around its chain
+    (the last entry of its sample_time.pkl, unrounded)."""
+    with open(pocket_dir / "sample_time.pkl", "rb") as f:
+        return float(pickle.load(f)[-1])
+
+
+def run_cli(main, argv: list) -> tuple:
+    """(return value, launch counts, wall seconds, stdout) of one CLI
+    `main(argv)` in this process, every count set to 0 just before."""
+    import io
+    buf = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = main([str(a) for a in argv])
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, read_launches(), time.perf_counter() - t0, buf.getvalue()
+
+
+def xyz_frames(path: Path) -> list:
+    """[(element letters, coordinates [n, 3])] of each xyz frame."""
+    lines, frames, i = path.read_text().splitlines(), [], 0
+    while i < len(lines):
+        n = int(lines[i])
+        rows = [ln.split() for ln in lines[i + 1:i + 1 + n]]
+        frames.append(([r[0] for r in rows],
+                       np.array([r[1:] for r in rows], float)))
+        i += n + 1
+    return frames
+
+
+def check_frames(name: str, path: Path, count: int) -> list:
+    """`count` frames of 3-8 finite centres typed by the 6-type map;
+    returns their sizes."""
+    from pharmaforge_tpu_torch.constants import TYPE_IDX_TO_ELEM
+    frames = xyz_frames(path)
+    sizes = [len(e) for e, _ in frames]
+    check(len(frames) == count, f"cli {name}: {len(frames)} frames in "
+                                f"{path}, expected {count}")
+    check(all(3 <= n <= 8 for n in sizes), f"cli {name}: sizes {sizes}")
+    check(all(set(e) <= set(TYPE_IDX_TO_ELEM) and np.isfinite(x).all()
+              for e, x in frames), f"cli {name}: unknown types or "
+                                   f"non-finite centres in {path}")
+    return sizes
+
+
+def phase_cli(dev, config_fn=cli_config, samples: tuple = (8, 30)) -> dict:
+    """The port's three CLIs through their `main(argv)` on the card, in a
+    temporary directory, with the reference-size model:
+
+    * train: `--config` for one epoch on the synthetic set it writes,
+      `config.yaml` read back as the merged config, `metrics.jsonl` and
+      `checkpoints/last/model.pt`, exactly 1 K1, 2 K2 and 2 K3 launches
+      per optimizer step; then `--resume` with `max_epochs` 2, the step
+      count going on from the first fit;
+    * export: `interop.export_reference_checkpoint` writes
+      `checkpoints/exported_reference.ckpt`, whose weights read back
+      through `load_torch_checkpoint` bit-equal to `model.pt`;
+    * test: `--model_dir` over 4 validation pockets x `samples[0]`, one
+      stacked T=1000 fp32 chain: the per-pocket artifacts and
+      metrics.txt, finite centres, exactly `expected_launches` K1 and K2
+      for the probed `pp_k_out`, the chain's first K1 call and first call
+      of each K2 layout against their plain versions;
+    * generate: the aspirin receptor of tests/fixtures/realchem with its
+      bound pose as the reference ligand, `--ckpt` the exported `.ckpt`
+      of a copy of the run in bf16, `samples[1]` samples in one T=1000
+      chain: pocket.pdb, the frames, exactly `expected_launches`, its
+      kernel calls against their plain versions as in the test CLI.
+
+    Each sampling CLI's wall is printed beside its chain time, as the CLI
+    measured it into sample_time.pkl.
+
+    Returns every kernel's launches over the four CLI runs."""
+    import shutil
+    import tempfile
+    from pharmaforge_tpu_torch.cli import generate, test, train
+    from pharmaforge_tpu_torch.config.yaml_io import dump_file, load_file
+    from pharmaforge_tpu_torch.interop import (
+        export_reference_checkpoint, load_torch_checkpoint)
+    from pharmaforge_tpu_torch.models.diffusion import DiffusionConfig
+
+    dev_arg = ["--device", str(dev)]
+    total = dict.fromkeys(KERNELS, 0)
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        config = config_fn(tmp)
+        dump_file(config, tmp / "cli.yml")
+
+        per_step, k_outs = [], []
+        with cli_counters(per_step, k_outs):
+            run, fit, fit_s, _ = run_cli(
+                train.main, ["--config", tmp / "cli.yml", "--seed", "1",
+                             *dev_arg])
+        (only,) = Path(config["training"]["output_dir"]).iterdir()
+        check(only == run, f"cli train: run dir {only}, returned {run}")
+        saved = load_file(run / "config.yaml")
+        check(saved == dict(config, resume={"run_id": run.name[-8:]}),
+              "cli train: config.yaml does not read back as the merged "
+              "config")
+        records = [json.loads(ln) for ln in
+                   (run / "metrics.jsonl").read_text().splitlines()]
+        losses = [r[k] for r in records for k in r if "loss" in k]
+        check(bool(losses) and bool(np.isfinite(losses).all()),
+              "cli train: non-finite or missing losses")
+        check((run / "checkpoints" / "last" / "model.pt").is_file(),
+              "cli train: no checkpoints/last/model.pt")
+        steps = json.loads((run / "checkpoints" / "last" / "meta.json")
+                           .read_text())["step"]
+        check(len(per_step) == steps > 0 and all(
+            c == PER_STEP for c in per_step),
+            f"cli train: {steps} steps, launches per step {per_step}")
+        check(fit["pp_message_bwd"] == 2 * steps,
+              f"cli train: {fit['pp_message_bwd']} K3 launches in "
+              f"{steps} steps")
+        lines.append(f"train CLI: {steps} steps of batch "
+                     f"{config['training']['batch_size']} in 1 epoch "
+                     f"(dataset written by the CLI), {fit_s} s wall, "
+                     f"launches {fit} (K2 beyond 2 a step: validation)")
+
+        saved["training"]["trainer_args"]["max_epochs"] = 2
+        dump_file(saved, run / "config.yaml")
+        per_step.clear()
+        with cli_counters(per_step, k_outs):
+            _, resumed, resume_s, _ = run_cli(
+                train.main, ["--resume", run, *dev_arg])
+        meta = json.loads((run / "checkpoints" / "last" / "meta.json")
+                          .read_text())
+        new = [json.loads(ln) for ln in (run / "metrics.jsonl").read_text()
+               .splitlines()][len(records):]
+        check(meta["step"] == 2 * steps and meta["epoch"] == 2
+              and new[0]["step"] == steps + 1,
+              f"cli resume: step {meta['step']}, epoch {meta['epoch']}, "
+              f"first new step {new[0]['step']} after {steps} steps")
+        check(len(per_step) == steps and all(
+            c == PER_STEP for c in per_step) and resumed["pp_message_bwd"]
+            == 2 * steps, f"cli resume: launches per step {per_step}")
+        lines.append(f"train CLI --resume: steps {steps + 1}-{2 * steps} "
+                     f"(epoch 2), {resume_s} s wall, launches {resumed}")
+
+        ckpt = export_reference_checkpoint(run)
+        cfg = DiffusionConfig.from_config(saved)
+        got = load_torch_checkpoint(ckpt, cfg)
+        want = torch.load(run / "checkpoints" / "last" / "model.pt",
+                          map_location="cpu", weights_only=True)
+        check(set(got) == set(want) and all(
+            torch.equal(got[k], want[k]) for k in want),
+            "cli export: the .ckpt weights are not bit-equal to model.pt")
+        lines.append(f"export: {ckpt.name}, its {len(want)} weight tensors "
+                     f"bit-equal to model.pt through load_torch_checkpoint")
+
+        k_outs.clear()
+        test_calls = {}
+        with cli_counters([], k_outs), cli_kernel_calls(test_calls):
+            out, sampled, test_s, stdout = run_cli(
+                test.main, ["--model_dir", run, "--samples_per_pocket",
+                            samples[0], "--dataset_size", 4,
+                            "--max_batch_size", 4 * samples[0],
+                            "--metrics", *dev_arg])
+        check("stacked 4/call" in stdout and len(k_outs) == 1,
+              f"cli test: not one stacked call of 4 pockets "
+              f"(probes {k_outs}): {stdout[-300:]!r}")
+        for name in ("metrics.txt", "metrics.pkl", "pharm_counts_None.txt",
+                     "pharm_counts_None.pkl"):
+            check((out / name).is_file(), f"cli test: no {name}")
+        for i in range(4):
+            for name in ("sample_time.txt", "sample_time.pkl"):
+                check((out / f"pocket_{i}" / name).is_file(),
+                      f"cli test: no pocket_{i}/{name}")
+            check_frames("test", out / f"pocket_{i}" / "pharms.xyz",
+                         samples[0])
+        metrics = dict(ln.split(": ") for ln in
+                       (out / "metrics.txt").read_text().splitlines())
+        check(list(metrics)[0] == "validity" and all(
+            np.isfinite(float(v)) for v in metrics.values()),
+            f"cli test: metrics.txt {metrics}")
+        want = expected_launches(cfg, corrected=k_outs[0] > 0)
+        check(sampled == want, f"cli test: launches {sampled}, expected "
+                               f"{want} (pp_k_out {k_outs[0]})")
+        test_errs = check_cli_kernels(
+            "test", test_calls, want["pp_message"] // cfg.n_timesteps)
+        test_chain = sum(chain_seconds(out / f"pocket_{i}")
+                         for i in range(4))
+        lines.append(f"test CLI: 4 pockets x {samples[0]} samples, one "
+                     f"stacked T={cfg.n_timesteps} chain (B={4 * samples[0]}"
+                     f", fp32), pp_k_out {k_outs[0]}, {test_s} s wall = "
+                     f"chain {test_chain} s (sample_time.pkl) + set-up and "
+                     f"outputs {test_s - test_chain} s, launches {sampled}, "
+                     f"validity {float(metrics['validity']):.3f}; first "
+                     f"call of each kernel layout vs its plain version, "
+                     f"max abs err {json.dumps(test_errs)}")
+
+        bf16 = tmp / "runs" / "bf16"
+        shutil.copytree(run, bf16)
+        bf16_config = load_file(bf16 / "config.yaml")
+        bf16_config["dynamics"]["compute_dtype"] = "bfloat16"
+        dump_file(bf16_config, bf16 / "config.yaml")
+        ligand = tmp / "aspirin_bound.sdf"
+        # the fixture's first record is a decoy 40 A away: the bound pose
+        ligand.write_text((REALCHEM / "aspirin_rec_asp_lig_tt_docked.sdf")
+                          .read_text().split("$$$$\n")[1] + "$$$$\n")
+        k_outs.clear()
+        gen_calls = {}
+        with cli_counters([], k_outs), cli_kernel_calls(gen_calls):
+            pocket_dir, generated, gen_s, _ = run_cli(
+                generate.main, [REALCHEM / "aspirin_rec.pdb",
+                                "--ref_ligand_file", ligand, "--ckpt",
+                                bf16 / "checkpoints" /
+                                "exported_reference.ckpt",
+                                "--samples_per_pocket", samples[1],
+                                "--output_dir", tmp / "generated",
+                                *dev_arg])
+        pdb = pocket_dir / "pocket.pdb"
+        check(pdb.is_file() and pdb.read_text().count("ATOM") > 0,
+              "cli generate: no pocket.pdb")
+        sizes = check_frames("generate", pocket_dir / "pharms.xyz",
+                             samples[1])
+        bf16_cfg = DiffusionConfig.from_config(bf16_config)
+        want = expected_launches(bf16_cfg, corrected=k_outs[0] > 0)
+        check(len(k_outs) == 1 and generated == want,
+              f"cli generate: launches {generated}, expected {want} "
+              f"(pp_k_out {k_outs})")
+        gen_errs = check_cli_kernels(
+            "generate", gen_calls,
+            want["pp_message"] // bf16_cfg.n_timesteps)
+        gen_chain = chain_seconds(pocket_dir)
+        lines.append(f"generate CLI: aspirin pocket "
+                     f"({pdb.read_text().count('ATOM')} atoms), "
+                     f"{samples[1]} samples in one T={bf16_cfg.n_timesteps}"
+                     f" chain (bf16, from the exported .ckpt), pp_k_out "
+                     f"{k_outs[0]}, sizes {min(sizes)}-{max(sizes)}, "
+                     f"{gen_s} s wall = chain {gen_chain} s "
+                     f"(sample_time.pkl) + set-up and outputs "
+                     f"{gen_s - gen_chain} s, launches {generated}; first "
+                     f"call of each kernel layout vs its plain version, "
+                     f"max abs err {json.dumps(gen_errs)}")
+        for counts in (fit, resumed, sampled, generated):
+            for k in KERNELS:
+                total[k] += counts[k]
+    where = card() if dev.type == "cuda" else str(dev)
+    for line in lines:
+        print(f"cli: {line} on {where}", flush=True)
+    print(f"cli: launches over the four CLI runs {total}", flush=True)
+    return total
+
+
 def main() -> int:
     global PROFILE_TABLES
     if not torch.cuda.is_available():
@@ -1702,6 +2078,7 @@ def main() -> int:
     width_launches = phase_fullwidth(dev, profile)
     ppbwd = phase_ppbwd(dev)
     train_launches = phase_train(dev, profile)
+    cli_launches = phase_cli(dev)
     kernels = [knn, pp, ppbwd]
     for kern in kernels:
         # `launches`: this slice's main path, the 2-epoch training run
@@ -1709,6 +2086,7 @@ def main() -> int:
         kern["launches_fullscale_chain"] = full_launches[kern["name"]]
         kern["launches_fullwidth_chain_t100"] = width_launches[kern["name"]]
         kern["launches_dev_chain"] = dev_launches[kern["name"]]
+        kern["launches_cli"] = cli_launches[kern["name"]]
         check(kern["launches"] > 0, f"{kern['name']}: not launched by the "
                                     f"training run")
     print(card())

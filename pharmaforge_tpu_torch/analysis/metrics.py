@@ -2,8 +2,9 @@
 
 Port of `pharmaforge_tpu/analysis/metrics.py` (reference
 analysis/metrics.py:7-86): the fraction of generated centres that lie
-within a type-specific distance of a complementary receptor site. Host
-numpy over small decoded samples.
+within a type-specific distance of a complementary receptor site, its
+breakdown by generated type, and the type histogram. Host numpy over
+small decoded samples.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import List
 import numpy as np
 
 from pharmaforge_tpu_torch.analysis.pharm_builder import SampledPharmacophore
+from pharmaforge_tpu_torch.constants import PH_IDX_TO_TYPE
 
 MATCHING_TYPES = {
     "Aromatic": ["Aromatic", "PositiveIon"],
@@ -68,3 +70,38 @@ class SampleAnalyzer:
                 return_count=True)
             total += ph.n_ph_centers
         return {"validity": valid / max(total, 1)}
+
+    def analyze_per_type(self, sample: List[SampledPharmacophore]) -> dict:
+        """Validity by generated-centre type (the JAX package's extension
+        of the reference): {'validity_<Type>': fraction of generated
+        <Type> centres near a complementary receptor site, 'count_<Type>':
+        how many were generated}. `analyze`'s 'validity' is their
+        count-weighted mean."""
+        num = dict.fromkeys(MATCHING_TYPES, 0)
+        den = dict.fromkeys(MATCHING_TYPES, 0)
+        for ph in sample:
+            if ph.prot_ph_pos is None or ph.prot_ph_types is None:
+                raise ValueError(
+                    "sample lacks receptor pharmacophore sites (prot_ph); "
+                    "validity is only computable for dataset pockets")
+            for i, t in enumerate(ph.ph_types):
+                den[t] += 1
+                num[t] += compute_complementarity(
+                    pharm_types=[t], pharm_pos=ph.ph_coords[i:i + 1],
+                    prot_ph_types=ph.prot_ph_types,
+                    prot_ph_pos=ph.prot_ph_pos, return_count=True)
+        out = {}
+        for t in MATCHING_TYPES:
+            out[f"validity_{t}"] = num[t] / max(den[t], 1)
+            out[f"count_{t}"] = den[t]
+        return out
+
+    def pharm_feat_freq(self, sample: List[SampledPharmacophore]
+                        ) -> np.ndarray:
+        """Per-type counts over all sampled centres (reference
+        metrics.py:37-51)."""
+        type_counts = np.zeros(len(PH_IDX_TO_TYPE))
+        for ph in sample:
+            for val in ph.ph_feats_idxs:
+                type_counts[int(val)] += 1
+        return type_counts

@@ -5,10 +5,12 @@ reference's format, process_crossdocked.py:173-263) is a directory of
 split directories, each holding `prot_pharm_tensors.npz` (flat arrays
 `pharm_pos`, `pharm_feat`, `prot_pos`, `prot_feat`, `prot_ph_pos`,
 `prot_ph_feat` with `[start, end)` index arrays `pharm_idx` / `prot_idx` /
-`prot_ph_idx`), `prot_file_names.pkl.gz` and `lig_rdmol.pkl.gz` (read
-by the evaluation CLIs, not yet ported). Split directory names end in the
-split index. Samples are numpy dicts; the loader packs padded
-`PharmComplexBatch`es grouped by protein-size bucket.
+`prot_ph_idx`), `prot_file_names.pkl.gz` (each sample's receptor file,
+which the test CLI reads through `get_files`) and `lig_rdmol.pkl.gz` (its
+RDKit ligand, not read: nothing in the port writes the reference files
+yet). Split directory names end in the split index. Samples are numpy
+dicts; the loader packs padded `PharmComplexBatch`es grouped by
+protein-size bucket.
 
 The JAX package packs batches with its C++ packer; here `pack_batch`
 packs them in numpy, with the same values and the same random draws for
@@ -17,6 +19,8 @@ the pharmacophore subsampling.
 
 from __future__ import annotations
 
+import gzip
+import pickle
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional
 
@@ -26,6 +30,7 @@ from pharmaforge_tpu_torch.data.batch import (
     PharmComplexBatch,
     bucket_size,
 )
+from pharmaforge_tpu_torch.utils.relative_paths import fix_relative_path
 
 
 class ProteinPharmacophoreDataset:
@@ -36,8 +41,9 @@ class ProteinPharmacophoreDataset:
                  subsample_pharms: bool = False, subsample_min: int = 3,
                  subsample_max: int = 9, seed: int = 0, **kwargs):
         """Loads the split directories of `processed_data_dir` whose index
-        is in `split_idxs`. `raw_data_dir`, `graph_cutoffs` and extra
-        config keys are accepted and not read."""
+        is in `split_idxs`; a relative data directory that does not exist
+        is taken relative to the repository's root. `graph_cutoffs` and
+        extra config keys are accepted and not read."""
         self.name = name
         self.prot_elements = list(prot_elements)
         self.ph_type_map = list(ph_type_map)
@@ -47,8 +53,17 @@ class ProteinPharmacophoreDataset:
         self._rng = np.random.default_rng(seed)
         self.processed_data_dir = Path(processed_data_dir)
         if not self.processed_data_dir.exists():
-            raise FileNotFoundError(f"no processed data directory at "
-                                    f"{self.processed_data_dir}")
+            self.processed_data_dir = Path(
+                fix_relative_path(processed_data_dir))
+            if not self.processed_data_dir.exists():
+                raise FileNotFoundError(f"no processed data directory at "
+                                        f"{self.processed_data_dir}")
+        self.raw_data_dir = raw_data_dir
+        if raw_data_dir and not Path(raw_data_dir).exists():
+            fixed = fix_relative_path(raw_data_dir)
+            if Path(fixed).exists():
+                self.raw_data_dir = fixed
+        self.prot_file_names: List[str] = []
 
         keys = ("pharm_pos", "pharm_feat", "prot_pos", "prot_feat",
                 "prot_ph_pos", "prot_ph_feat")
@@ -64,6 +79,10 @@ class ProteinPharmacophoreDataset:
                 continue
             if split_idx not in split_idxs:
                 continue
+            names_file = split_dir / "prot_file_names.pkl.gz"
+            if names_file.exists():
+                with gzip.open(names_file, "rb") as f:
+                    self.prot_file_names.extend(pickle.load(f))
             data = np.load(split_dir / "prot_pharm_tensors.npz")
             for k in keys:
                 cols[k].append(data[k])
@@ -151,6 +170,16 @@ class ProteinPharmacophoreDataset:
             out["pharm_h"][row, np.arange(n), self.pharm_feat[rows]] = 1.0
             out["pharm_mask"][row, :n] = True
         return PharmComplexBatch(**out)
+
+    def get_files(self, idx: int):
+        """(raw data dir, receptor file name, ligand) of sample `idx`
+        (reference protein_pharm_dataset.py:201-207). The ligand is None:
+        its RDKit molecule is read once the reference files are written
+        (ROADMAP A.6). The name is None where the processed set does not
+        record it."""
+        name = (self.prot_file_names[idx]
+                if idx < len(self.prot_file_names) else None)
+        return self.raw_data_dir, name, None
 
 
 def get_dataloader(dataset: ProteinPharmacophoreDataset, batch_size: int,

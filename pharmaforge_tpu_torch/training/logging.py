@@ -1,16 +1,25 @@
 """Metric logging: `<run_dir>/metrics.jsonl` always, wandb when enabled.
 
 Port of `pharmaforge_tpu/training/logging.py` (reference train.py:86-124):
-the same metric names and step cadence. wandb is imported only when a
-config enables it.
+the same metric names and step cadence, and the run id of a new run
+(`generate_run_id`). wandb is imported only when a config enables it.
 """
 
 from __future__ import annotations
 
 import json
+import secrets
+import string
 import time
 from pathlib import Path
 from typing import Dict, Optional
+
+
+def generate_run_id(length: int = 8) -> str:
+    """A random run id of lowercase letters and digits (the run dir's
+    `<name>_<run_id>`)."""
+    alphabet = string.ascii_lowercase + string.digits
+    return "".join(secrets.choice(alphabet) for _ in range(length))
 
 
 class MetricsLogger:
