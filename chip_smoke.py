@@ -9,7 +9,10 @@
                                      # traces and the train phase; each
                                      # kernel table by name into DIR
 
-Phases, one line each; any failure raises and the script exits non-zero:
+Phases, one line each, then a `wall:` line with the phase's seconds; any
+failure raises and the script exits non-zero. They run in the order build,
+knn, golden, main, pp, fullscale, fullwidth, tables, ppbwd, train, dist,
+cli:
 
 1. build     -- compile every CUDA kernel of the sampling and training
                 paths from `pharmaforge_tpu_torch/csrc` (nvcc, sm_90a; one
@@ -104,7 +107,29 @@ Phases, one line each; any failure raises and the script exits non-zero:
                 that `.ckpt`, each with its artifacts, finite centres of
                 3-8 typed by the 6-type map, and exactly the K1 and K2
                 launches of `expected_launches` for the probed k_out; the
-                wall of each CLI with the card's name and power limit.
+                wall of each CLI with the card's name and power limit;
+                and the generate CLI again with `--latency_mode on` (the
+                step tables), checked alike, its chain time beside;
+10. tables   -- the step tables (`precompute_step_tables`) on the
+                full-scale sampling model, 4 pockets x 30 (B=120): the
+                build at T=1000 (bytes, chunks, peak device memory); the
+                first denoiser call of a fp32 T=1000 chain with tables
+                against the per-step chain at the conv tolerance, and with
+                the tables misordered (`tables_misordered`, a planted
+                fault) outside it; a fp32 T=100 chain with tables within
+                2e-3 of the per-step one; a bf16 T=1000 chain of each path
+                (samples/s of both, exactly 1,000 K1, 3,000 K2 and 1,000
+                correction passes, the final-coordinate deviation
+                printed); device kernels per step of each path;
+11. dist     -- data parallelism over torch.distributed: one epoch of the
+                train phase's model on 3 x 24 synthetic pockets, then one
+                `sample_stacked` (the full-scale model in fp32 at T=50, 2
+                pockets x 8), without a process group, as one NCCL rank
+                and as two gloo ranks sharing the card: every rank
+                exactly 1 K1, 2 K2 and 2 K3 launches a step, weights
+                within the fp32 train-step tolerance of the no-group run's
+                (NCCL bit-equality printed), rank 0 alone writing, the
+                samples within 2e-3.
 
 Then the card's name and power limit, the `kernels` JSON line, and the
 final `{"ok": true, ...}` line. Without CUDA it exits 1 and prints no
@@ -670,15 +695,17 @@ def correction_dropped(deltas: list):
 
 def phase_sampling(name: str, dev, cfg, n_pockets: int, per_pocket: int,
                    atoms: int, timed: int, cmp_steps: int,
-                   profile: bool = False, other=None) -> dict:
+                   profile: bool = False, other=None,
+                   keep: dict | None = None) -> dict:
     """Drive `cfg` through `PocketSampler.sample_stacked`: a warm-up chain,
     then `timed` chains with every launch count set to 0 just before and
     read just after; then the same weights in fp32 over `cmp_steps` steps,
     1 pocket x 8, on the card and on the CPU with the same injected noise.
     `other` (DiffusionConfig overrides: the other sampling path) also
     holds that fp32 chain against the other path's on the card and prints
-    the two paths' bf16 difference. Returns the launch counts of one timed
-    chain."""
+    the two paths' bf16 difference. `keep` gets the samples/s of the timed
+    chains ('rates') and the centres of the first ('pharm_x', generator
+    seed 2). Returns the launch counts of one timed chain."""
     from pharmaforge_tpu_torch.data.batch import tile_pocket
     from pharmaforge_tpu_torch.models import conv
     from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
@@ -713,6 +740,8 @@ def phase_sampling(name: str, dev, cfg, n_pockets: int, per_pocket: int,
               f"{name}: {conv.corrections} correction passes per chain, "
               f"expected {want_corr}")
         rates.append(n_pockets * per_pocket / dt)
+        if rep == 0 and keep is not None:
+            keep.update(rates=rates, pharm_x=sampler.last_output["pharm_x"])
     out = sampler.last_output
     mask = out["pharm_mask"]
     check(out["pharm_x"].shape == (n_pockets * per_pocket, 8, 3),
@@ -850,12 +879,28 @@ def phase_profile(dev) -> None:
     phase_train(dev, profile=True)
 
 
+def self_us(e) -> float:
+    """An event's own device time in µs."""
+    return (getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0))
+
+
+def device_events(p) -> list:
+    """The device-side events of a profile (kernels, copies): the host
+    ops that launch them report the same time again, and a user
+    annotation on the device (such as the optimizer's step range) spans
+    kernels counted already."""
+    from torch.autograd import DeviceType
+    return [e for e in p.key_averages()
+            if e.device_type == DeviceType.CUDA and self_us(e) > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def profile_run(label: str, fn, name: str) -> None:
     """`fn` once under torch.profiler; prints its wall time, the device's
     busy share, each port kernel's time per launch and the 12 kernels that
     take the most device time. With PROFILE_TABLES set, every device
     kernel's count and time go to PROFILE_TABLES/<name>.json."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof
     with prof(activities=[ProfilerActivity.CPU,
                           ProfilerActivity.CUDA]) as p:
@@ -863,17 +908,7 @@ def profile_run(label: str, fn, name: str) -> None:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-
-    def self_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0))
-
-    # device-side events only (kernels, copies): the host ops that launch
-    # them report the same time again, and a user annotation on the device
-    # (such as the optimizer's step range) spans kernels counted already
-    events = [e for e in p.key_averages()
-              if e.device_type == DeviceType.CUDA and self_us(e) > 0
-              and not getattr(e, "is_user_annotation", False)]
+    events = device_events(p)
     busy = sum(self_us(e) for e in events) / 1e6
     top = sorted(events, key=lambda e: -self_us(e))[:12]
     per_kernel = []
@@ -1484,10 +1519,11 @@ def phase_ppbwd(dev, cases=None) -> dict:
 
 # -------------------------------------------------------------- fullscale
 
-def phase_fullscale(dev, profile: bool = False) -> dict:
+def phase_fullscale(dev, profile: bool = False,
+                    keep: dict | None = None) -> dict:
     return phase_sampling("fullscale", dev, full_config(), n_pockets=4,
                           per_pocket=30, atoms=230, timed=2, cmp_steps=20,
-                          profile=profile)
+                          profile=profile, keep=keep)
 
 
 def phase_fullwidth(dev, profile: bool = False) -> dict:
@@ -1495,6 +1531,276 @@ def phase_fullwidth(dev, profile: bool = False) -> dict:
                           n_pockets=4, per_pocket=30, atoms=230, timed=1,
                           cmp_steps=20, profile=profile,
                           other=dict(compact_prot_tail=True))
+
+
+# ----------------------------------------------------------------- tables
+
+class FirstCall(Exception):
+    """Ends a chain at its first denoiser call (`first_call`)."""
+
+
+@contextlib.contextmanager
+def first_call(model, kept: list):
+    """Inside the block, `model`'s chain stops at its first denoiser call,
+    whose outputs (eps_h, eps_x) go to `kept`."""
+    def hook(mod, args, out):
+        kept.append(tuple(o.detach().cpu() for o in out))
+        raise FirstCall
+
+    handle = model.dynamics.register_forward_hook(hook)
+    try:
+        yield
+    except FirstCall:
+        pass
+    finally:
+        handle.remove()
+
+
+@contextlib.contextmanager
+def tables_misordered():
+    """A planted fault: the step tables are built with the chain's
+    timesteps reversed, so step i reads step T-1-i's tables."""
+    from pharmaforge_tpu_torch.models import diffusion
+    real = diffusion.precompute_sampling_tables
+    diffusion.precompute_sampling_tables = \
+        lambda dyn, h, m, ed, tv, chunk: real(dyn, h, m, ed, tv.flip(0),
+                                              chunk)
+    try:
+        yield
+    finally:
+        diffusion.precompute_sampling_tables = real
+
+
+def stacked_batch(pockets, sizes, atoms: int):
+    """The batch `PocketSampler.sample_stacked` makes: every pocket tiled
+    over `sizes`, pocket-major."""
+    from pharmaforge_tpu_torch.data.batch import concat_batches, tile_pocket
+    return concat_batches([tile_pocket(p["prot_x"], p["prot_h"], sizes,
+                                       max_pharm=8, max_prot=atoms)
+                           for p in pockets])
+
+
+def chain_noise(b: int, steps: int, seed: int = 3) -> dict:
+    """Injected draws of a chain of `steps` steps over `b` rows."""
+    rng = np.random.default_rng(seed)
+    noise = {"x_T": rng.normal(size=(b, 8, 3)),
+             "h_T": rng.normal(size=(b, 8, 6)),
+             "pos": rng.normal(size=(steps, b, 8, 3)),
+             "feat": rng.normal(size=(steps, b, 8, 6))}
+    return {k: v.astype(np.float32) for k, v in noise.items()}
+
+
+def out_err(want, got) -> tuple:
+    """(max |got - want|, max of |got - want| - (atol + rtol |want|)) at
+    the conv tolerance over paired tensors."""
+    err, over = 0.0, -np.inf
+    for w, g in zip(want, got):
+        d = (g - w).abs()
+        err = max(err, float(d.max()))
+        over = max(over, float((d - CONV_TOL["atol"]
+                                - CONV_TOL["rtol"] * w.abs()).max()))
+    return err, over
+
+
+def device_kernels(fn) -> tuple:
+    """(device kernels and copies, device busy seconds, wall seconds) of
+    `fn` once under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile as prof
+    with prof(activities=[ProfilerActivity.CPU,
+                          ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = device_events(p)
+    return (sum(e.count for e in events),
+            sum(self_us(e) for e in events) / 1e6, wall)
+
+
+def phase_tables(dev, n_pockets: int = 4, per_pocket: int = 30,
+                 atoms: int = 230, cmp_steps: int = 100,
+                 kernel_steps: tuple = (10, 20), cfg=None,
+                 per_step: dict | None = None) -> dict:
+    """The step tables (`precompute_step_tables`) on the full-scale
+    sampling model (`full_config`, bf16, correction on), 4 pockets x 30:
+
+    * the build alone at T=1000: its bytes (the tensors' bytes equal the
+      JAX budget count), chunks and peak device memory;
+    * the first denoiser call of a T=1000 chain in fp32, tables against
+      the per-step chain (same weights, batch and noise), at the conv
+      tolerance; with the tables misordered (`tables_misordered`, a
+      planted fault) outside it;
+    * an fp32 chain of `cmp_steps` steps, tables on against off, final
+      coordinates within the chain tolerance;
+    * a bf16 T=1000 chain of each path through
+      `PocketSampler.sample_stacked` (generator seed 2): samples/s of
+      both, exactly 1,000 K1, 3,000 K2 and 1,000 correction passes in
+      each, the final coordinates' deviation printed only. `per_step`
+      (the fullscale phase's `keep`: the same model, pockets and seed)
+      stands for the per-step chain where given;
+    * device kernels per step of each path: profiled chains of
+      `kernel_steps` lengths, the difference over the extra steps.
+
+    Returns the launches of the T=1000 tables chain."""
+    from pharmaforge_tpu_torch.models import conv
+    from pharmaforge_tpu_torch.models.diffusion import (
+        PharmacophoreDiffusion, step_table_plan)
+    from pharmaforge_tpu_torch.models.dynamics import (
+        precompute_sampling_tables)
+    from pharmaforge_tpu_torch.models.edges import build_pp_edge
+    from pharmaforge_tpu_torch.training.sampling import PocketSampler
+
+    off_cfg = cfg or full_config()
+    on_cfg = dataclasses.replace(off_cfg, precompute_step_tables=True)
+    model = PharmacophoreDiffusion(
+        on_cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    pockets = synthetic_pockets(n_pockets, atoms)
+    sizes = np.random.default_rng(0).integers(3, 9, per_pocket)
+    n_pharms = [sizes] * n_pockets
+    batch = stacked_batch(pockets, sizes, atoms)
+    c, b = per_pocket, batch.batch_size
+    k_out = stacked_k_out(model, pockets, atoms)
+    check(k_out > 0, f"tables: the correction does not engage (k_out "
+                     f"{k_out})")
+
+    # the build alone
+    px = torch.as_tensor(batch.prot_x[::c], device=dev)
+    pm = torch.as_tensor(batch.prot_mask[::c], device=dev)
+    ph = torch.as_tensor(batch.prot_h[::c], device=dev)
+    _, ed_g = build_pp_edge(px, pm, model.cutoffs["pp"], on_cfg.pp_k_max)
+    g, p, k = ed_g.mask.shape
+    table_bytes, chunk = step_table_plan(on_cfg, g, p, k)
+    t_values = torch.arange(on_cfg.n_timesteps, 0, -1, device=dev,
+                            dtype=torch.float32) / on_cfg.n_timesteps
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tables = precompute_sampling_tables(model.dynamics, ph, pm, ed_g,
+                                        t_values, chunk)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        peak = (f"{torch.cuda.max_memory_allocated() - base} bytes above "
+                f"the {base} held before")
+    else:
+        peak = "not measured (no card)"
+    build_s = time.perf_counter() - t0
+    held = sum(a.numel() * a.element_size() for a in tables
+               if a is not None)
+    check(held == table_bytes <= on_cfg.precompute_table_budget,
+          f"tables: {held} bytes held, the plan counts {table_bytes}")
+    chunks = -(-on_cfg.n_timesteps // chunk)
+    del tables
+
+    # the first denoiser call in fp32, same inputs and noise
+    noise = chain_noise(b, off_cfg.n_timesteps)
+
+    def first(on: bool, fault: bool = False):
+        m = PharmacophoreDiffusion(dataclasses.replace(
+            off_cfg, compute_dtype="float32", precompute_step_tables=on),
+            device=dev)
+        m.load_state_dict(state)
+        kept: list = []
+        with tables_misordered() if fault else contextlib.nullcontext(), \
+                first_call(m, kept):
+            m.sample_given_receptor(batch, noise=noise, pocket_group_size=c,
+                                    pp_k_out=k_out)
+        check(len(kept) == 1, "tables: no first denoiser call kept")
+        return kept[0]
+
+    want = first(False)
+    step_err, step_over = out_err(want, first(True))
+    check(step_over <= 0, f"tables: the first denoiser call with tables "
+                          f"differs by {step_err:.3e}, beyond {CONV_TOL}")
+    fault_err, fault_over = out_err(want, first(True, fault=True))
+    check(fault_over > 0, f"tables: with the tables misordered the first "
+                          f"call differs by {fault_err:.3e}, within "
+                          f"{CONV_TOL}: the comparison cannot see it")
+
+    # an fp32 chain of cmp_steps, tables on against off
+    short = dataclasses.replace(off_cfg, n_timesteps=cmp_steps,
+                                compute_dtype="float32")
+    short_noise = chain_noise(b, cmp_steps, seed=4)
+    finals = []
+    for on in (True, False):
+        m = PharmacophoreDiffusion(dataclasses.replace(
+            short, precompute_step_tables=on), device=dev)
+        m.load_state_dict(state)
+        finals.append(m.sample_given_receptor(
+            batch, noise=short_noise, pocket_group_size=c,
+            pp_k_out=k_out)["pharm_x"].cpu())
+    chain_dev = float((finals[0] - finals[1]).abs().max())
+    check(chain_dev < CHAIN_TOL, f"tables: the fp32 T={cmp_steps} chain "
+                                 f"with tables differs by {chain_dev:.3e}")
+
+    # a bf16 chain of each path through the sampler, timed
+    rates, outs, launches = {}, {}, None
+    gen = torch.Generator(device=dev)
+    want_launches = expected_launches(on_cfg, corrected=True)
+    runs = (("per-step", off_cfg), ("tables", on_cfg))
+    if per_step is not None:
+        rates["per-step"] = per_step["rates"][0]
+        outs["per-step"] = per_step["pharm_x"]
+        runs = runs[1:]
+    for name, run_cfg in runs:
+        m = PharmacophoreDiffusion(run_cfg, device=dev)
+        m.load_state_dict(state)
+        sampler = PocketSampler(m, fixed_prot_slots=atoms, device=dev)
+        gen.manual_seed(2)
+        reset_launches()
+        t0 = time.perf_counter()
+        sampler.sample_stacked(pockets, n_pharms, gen)
+        torch.cuda.synchronize()
+        rates[name] = n_pockets * per_pocket / (time.perf_counter() - t0)
+        counts = read_launches()
+        check(counts == want_launches
+              and conv.corrections == run_cfg.n_timesteps,
+              f"tables: {name} chain launches {counts}, "
+              f"{conv.corrections} correction passes, expected "
+              f"{want_launches}")
+        outs[name] = sampler.last_output["pharm_x"]
+        launches = counts
+    bf16_dev = float(np.abs(outs["tables"] - outs["per-step"]).max())
+
+    # device kernels per step of each path
+    per_step = {}
+    for name, run_cfg in (("per-step", off_cfg), ("tables", on_cfg)):
+        found = []
+        for steps in kernel_steps:
+            m = PharmacophoreDiffusion(dataclasses.replace(
+                run_cfg, n_timesteps=steps), device=dev)
+            m.load_state_dict(state)
+            sampler = PocketSampler(m, fixed_prot_slots=atoms, device=dev)
+            gen.manual_seed(5)
+            found.append(device_kernels(
+                lambda: sampler.sample_stacked(pockets, n_pharms, gen)))
+        (n0, _, _), (n1, busy1, wall1) = found
+        extra = kernel_steps[1] - kernel_steps[0]
+        per_step[name] = (f"{(n1 - n0) / extra:.1f} device kernels and "
+                          f"copies a step (T={kernel_steps[0]} and "
+                          f"T={kernel_steps[1]} chains: {n0} and {n1}), "
+                          f"busy {busy1:.4f} s of {wall1:.4f} s in the "
+                          f"longer")
+    print(f"tables: full-scale model ({off_cfg.compute_dtype}, n_convs="
+          f"{off_cfg.n_convs}, correction on, k_out {k_out}), {n_pockets} "
+          f"pockets x {per_pocket} (B={b}) on {card()}: the build at "
+          f"T={on_cfg.n_timesteps} {table_bytes} bytes of tables (G={g}, "
+          f"P={p}, K={k}) in {chunks} chunks of {chunk} steps, "
+          f"{build_s:.4f} s, peak device memory {peak}; first denoiser "
+          f"call (fp32, T={off_cfg.n_timesteps}) tables vs per-step max|d| "
+          f"{step_err:.3e} (tolerance {CONV_TOL}), planted fault (tables "
+          f"misordered) max|d| {fault_err:.3e}; fp32 T={cmp_steps} chain "
+          f"tables on vs off final coords max|dx| {chain_dev:.3e} "
+          f"(tolerance {CHAIN_TOL}); {off_cfg.compute_dtype} "
+          f"T={on_cfg.n_timesteps} chains samples/s per-step "
+          f"{rates['per-step']:.4f}, tables {rates['tables']:.4f}, final "
+          f"coords max|dx| {bf16_dev:.3e} (printed only); each chain "
+          f"launched {launches} with {on_cfg.n_timesteps} correction "
+          f"passes; per-step path {per_step['per-step']}; tables path "
+          f"{per_step['tables']}", flush=True)
+    return launches
 
 
 # ------------------------------------------------------------------ train
@@ -1701,6 +2007,169 @@ def phase_train(dev, profile: bool = False, config_fn=train_config,
     return fit_launches
 
 
+# ------------------------------------------------------------------- dist
+
+def dist_config(data_dir: str) -> dict:
+    """`train_config`'s model and data for the dist phase: one epoch, no
+    sampling evaluation."""
+    config = train_config(data_dir, max_epochs=1)
+    config["training"]["evaluation"]["sample_interval"] = 0
+    return config
+
+
+def dist_setup(data_dir: str, run_dir: str, device: str, backend,
+               config_fn, sample_cfg, pockets, sizes, atoms: int) -> tuple:
+    """One setup of the dist phase, in this process (`backend` None: no
+    process group) or as a rank of a group: `Trainer.fit` of
+    `config_fn(data_dir)` into `run_dir`, then one `PocketSampler.sample_stacked`
+    of `sample_cfg` with the trained weights. Returns (launches per
+    optimizer step, the weights after the fit, the sampled dense
+    centres, the rank)."""
+    from pharmaforge_tpu_torch.config.load_from_config import (
+        data_module_from_config, model_from_config)
+    from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
+    from pharmaforge_tpu_torch.parallel import mesh
+    from pharmaforge_tpu_torch.training.sampling import PocketSampler
+    from pharmaforge_tpu_torch.training.trainer import Trainer
+    dev = (torch.device(device) if backend is None else
+           mesh.init_distributed(device=device, backend=backend))
+    config = config_fn(data_dir)
+    trainer = Trainer(config, run_dir, device=dev)
+    per_step: list = []
+    count_steps(trainer, per_step)
+    model = model_from_config(config, device=dev)
+    trainer.fit(model, data_module_from_config(config))
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    sampler_model = PharmacophoreDiffusion(sample_cfg, device=dev)
+    sampler_model.load_state_dict(model.state_dict())
+    sampler = PocketSampler(sampler_model, fixed_prot_slots=atoms,
+                            device=dev)
+    sampler.sample_stacked(pockets, [sizes] * len(pockets),
+                           torch.Generator(device=dev).manual_seed(7))
+    return per_step, weights, sampler.last_output["pharm_x"], mesh.rank()
+
+
+def weights_close(got: dict, want: dict) -> tuple:
+    """(worst ratio of a leaf's max |a - b| to its fp32 train-step bound
+    2e-4 max|b| + 2e-5, bit-equal?) over the weights."""
+    worst, equal = 0.0, True
+    for k, w in want.items():
+        err = float((got[k] - w).abs().max())
+        worst = max(worst, err / (2e-4 * float(w.abs().max()) + 2e-5))
+        equal = equal and torch.equal(got[k], w)
+    return worst, equal
+
+
+def metric_records(run_dir: Path) -> list:
+    out = []
+    for ln in (run_dir / "metrics.jsonl").read_text().splitlines():
+        rec = json.loads(ln)
+        rec.pop("time")
+        out.append(rec)
+    return out
+
+
+def phase_dist(dev, config_fn=dist_config, samples_per_split: int = 24,
+               n_prot_range=(200, 230), sample_steps: int = 50,
+               atoms: int = 230, limit_s: float = 600.0) -> dict:
+    """Data parallelism (`parallel/mesh.py`) on the card: `dist_setup`
+    three ways, from the same seed and data: without a process group, as
+    one NCCL rank, and as two gloo ranks sharing the card (NCCL refuses
+    two ranks on one device). Each rank launches exactly 1 K1, 2 K2 and 2
+    K3 per optimizer step; the weights after the fit agree with the
+    no-group run's at the fp32 train-step tolerance per leaf (whether the
+    NCCL run's are bit-equal is printed); rank 0 alone writes (the run
+    dirs list the same files, each metric line once, the metrics within
+    rtol 1e-4); the no-group run made twice, as the control of
+    bit-equality; `sample_stacked` of the full-scale model in fp32 cut to
+    `sample_steps` steps, 2 pockets x 8, within the chain tolerance of
+    the no-group run's (whose chain takes the pocket-copy correction;
+    the two gloo ranks' do not, as in JAX). Returns rank 0's launches
+    over the two-rank fit."""
+    import tempfile
+    from pharmaforge_tpu_torch.data.synthetic import (
+        make_synthetic_processed_dataset)
+    from pharmaforge_tpu_torch.parallel.mesh import spawn_local
+    sample_cfg = dataclasses.replace(full_config(), compute_dtype="float32",
+                                     n_timesteps=sample_steps)
+    pockets = synthetic_pockets(2, atoms)
+    sizes = np.random.default_rng(0).integers(3, 9, 8)
+    # both gloo ranks share the one card
+    where = "cuda:0" if dev.type == "cuda" else str(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = str(make_synthetic_processed_dataset(
+            f"{tmp}/data", n_splits=3, samples_per_split=samples_per_split,
+            n_prot_range=n_prot_range, seed=11))
+        args = (config_fn, sample_cfg, pockets, sizes, atoms)
+        t0 = time.perf_counter()
+        alone = dist_setup(data, f"{tmp}/alone", where, None, *args)
+        alone_s = time.perf_counter() - t0
+        check(len(alone[0]) > 0 and all(c == PER_STEP for c in alone[0]),
+              f"dist: launches per step without a group {alone[0]}")
+        # the control: the same run again, still without a group
+        again = weights_close(dist_setup(data, f"{tmp}/again", where, None,
+                                         *args)[1], alone[1])
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        runs = {}
+        for name, n, backend in (("nccl", 1, "nccl"), ("gloo", 2, "gloo")):
+            t0 = time.perf_counter()
+            if dev.type != "cuda":
+                backend = "gloo"
+            runs[name] = (spawn_local(n, dist_setup, data, f"{tmp}/{name}",
+                                      where, backend, *args,
+                                      timeout_s=limit_s),
+                          time.perf_counter() - t0)
+        want_files = sorted(str(q.relative_to(f"{tmp}/alone"))
+                            for q in Path(f"{tmp}/alone").rglob("*"))
+        want_records = metric_records(Path(f"{tmp}/alone"))
+        lines = []
+        for name, (ranks, secs) in runs.items():
+            run = Path(tmp) / name
+            files = sorted(str(q.relative_to(run)) for q in run.rglob("*"))
+            check(files == want_files, f"dist {name}: files {files}, "
+                                       f"expected {want_files}")
+            records = metric_records(run)
+            check([sorted(r) for r in records]
+                  == [sorted(r) for r in want_records],
+                  f"dist {name}: metric lines differ from the no-group "
+                  f"run's")
+            rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-6)
+                      for g, w in zip(records, want_records) for k in w
+                      if k != "step")
+            check(rel <= 1e-4, f"dist {name}: metrics within {rel:.3e}")
+            worst, equal, sample_dev = 0.0, True, 0.0
+            for per_step, weights, centres, r in ranks:
+                check(len(per_step) == len(alone[0]) > 0 and all(
+                    c == PER_STEP for c in per_step),
+                    f"dist {name} rank {r}: launches per step {per_step}")
+                w, e = weights_close(weights, alone[1])
+                worst, equal = max(worst, w), equal and e
+                sample_dev = max(sample_dev,
+                                 float(np.abs(centres - alone[2]).max()))
+            check(worst <= 1, f"dist {name}: weights at {worst:.3f} of the "
+                              f"train-step bound")
+            check(sample_dev < CHAIN_TOL, f"dist {name}: sample_stacked "
+                                          f"differs by {sample_dev:.3e}")
+            lines.append(f"{name} ({len(ranks)} rank{'s' * (len(ranks) > 1)}"
+                         f", {secs:.1f} s with start-up): {len(alone[0])} "
+                         f"steps, {PER_STEP} launches every step on every "
+                         f"rank, weights at {worst:.4f} of the train-step "
+                         f"bound (bit-equal {equal}), metrics max rel "
+                         f"{rel:.3e}, files as the no-group run's, "
+                         f"sample_stacked max|dx| {sample_dev:.3e} "
+                         f"(tolerance {CHAIN_TOL})")
+    fit_launches = {k: sum(c[k] for c in runs["gloo"][0][0][0])
+                    for k in KERNELS}
+    print(f"dist: {card() if dev.type == 'cuda' else where}: no process "
+          f"group {alone_s:.1f} s, run again without a group: weights at "
+          f"{again[0]:.4f} of the train-step bound (bit-equal {again[1]}); "
+          + "; ".join(lines)
+          + f"; rank 0 of the two gloo ranks launched {fit_launches} in "
+          f"its fit", flush=True)
+    return fit_launches
+
+
 # -------------------------------------------------------------------- cli
 
 REALCHEM = ROOT / "tests" / "fixtures" / "realchem"
@@ -1881,7 +2350,10 @@ def phase_cli(dev, config_fn=cli_config, samples: tuple = (8, 30)) -> dict:
     Each sampling CLI's wall is printed beside its chain time, as the CLI
     measured it into sample_time.pkl.
 
-    Returns every kernel's launches over the four CLI runs."""
+    * generate again with `--latency_mode on` (the step tables), the same
+      checks, its chain time beside the `auto` run's.
+
+    Returns every kernel's launches over the five CLI runs."""
     import shutil
     import tempfile
     from pharmaforge_tpu_torch.cli import generate, test, train
@@ -2010,49 +2482,61 @@ def phase_cli(dev, config_fn=cli_config, samples: tuple = (8, 30)) -> dict:
         # the fixture's first record is a decoy 40 A away: the bound pose
         ligand.write_text((REALCHEM / "aspirin_rec_asp_lig_tt_docked.sdf")
                           .read_text().split("$$$$\n")[1] + "$$$$\n")
-        k_outs.clear()
-        gen_calls = {}
-        with cli_counters([], k_outs), cli_kernel_calls(gen_calls):
-            pocket_dir, generated, gen_s, _ = run_cli(
-                generate.main, [REALCHEM / "aspirin_rec.pdb",
-                                "--ref_ligand_file", ligand, "--ckpt",
-                                bf16 / "checkpoints" /
-                                "exported_reference.ckpt",
-                                "--samples_per_pocket", samples[1],
-                                "--output_dir", tmp / "generated",
-                                *dev_arg])
-        pdb = pocket_dir / "pocket.pdb"
-        check(pdb.is_file() and pdb.read_text().count("ATOM") > 0,
-              "cli generate: no pocket.pdb")
-        sizes = check_frames("generate", pocket_dir / "pharms.xyz",
-                             samples[1])
         bf16_cfg = DiffusionConfig.from_config(bf16_config)
-        want = expected_launches(bf16_cfg, corrected=k_outs[0] > 0)
-        check(len(k_outs) == 1 and generated == want,
-              f"cli generate: launches {generated}, expected {want} "
-              f"(pp_k_out {k_outs})")
-        gen_errs = check_cli_kernels(
-            "generate", gen_calls,
-            want["pp_message"] // bf16_cfg.n_timesteps)
-        gen_chain = chain_seconds(pocket_dir)
-        lines.append(f"generate CLI: aspirin pocket "
-                     f"({pdb.read_text().count('ATOM')} atoms), "
-                     f"{samples[1]} samples in one T={bf16_cfg.n_timesteps}"
-                     f" chain (bf16, from the exported .ckpt), pp_k_out "
-                     f"{k_outs[0]}, sizes {min(sizes)}-{max(sizes)}, "
-                     f"{gen_s} s wall = chain {gen_chain} s "
-                     f"(sample_time.pkl) + set-up and outputs "
-                     f"{gen_s - gen_chain} s, launches {generated}; first "
-                     f"call of each kernel layout vs its plain version, "
-                     f"max abs err {json.dumps(gen_errs)}")
-        for counts in (fit, resumed, sampled, generated):
+        generated = {}
+        for mode in ("auto", "on"):
+            k_outs.clear()
+            gen_calls = {}
+            with cli_counters([], k_outs), cli_kernel_calls(gen_calls):
+                pocket_dir, generated[mode], gen_s, _ = run_cli(
+                    generate.main, [REALCHEM / "aspirin_rec.pdb",
+                                    "--ref_ligand_file", ligand, "--ckpt",
+                                    bf16 / "checkpoints" /
+                                    "exported_reference.ckpt",
+                                    "--samples_per_pocket", samples[1],
+                                    "--output_dir", tmp / f"generated_{mode}",
+                                    "--latency_mode", mode, *dev_arg])
+            pdb = pocket_dir / "pocket.pdb"
+            check(pdb.is_file() and pdb.read_text().count("ATOM") > 0,
+                  "cli generate: no pocket.pdb")
+            sizes = check_frames(f"generate {mode}",
+                                 pocket_dir / "pharms.xyz", samples[1])
+            want = expected_launches(bf16_cfg, corrected=k_outs[0] > 0)
+            check(len(k_outs) == 1 and generated[mode] == want,
+                  f"cli generate {mode}: launches {generated[mode]}, "
+                  f"expected {want} (pp_k_out {k_outs})")
+            gen_errs = check_cli_kernels(
+                f"generate {mode}", gen_calls,
+                want["pp_message"] // bf16_cfg.n_timesteps)
+            gen_chain = chain_seconds(pocket_dir)
+            lines.append(
+                f"generate CLI --latency_mode {mode}"
+                f"{' (step tables)' if mode == 'on' else ''}: aspirin "
+                f"pocket ({pdb.read_text().count('ATOM')} atoms), "
+                f"{samples[1]} samples in one T={bf16_cfg.n_timesteps} "
+                f"chain (bf16, from the exported .ckpt), pp_k_out "
+                f"{k_outs[0]}, sizes {min(sizes)}-{max(sizes)}, {gen_s} s "
+                f"wall = chain {gen_chain} s (sample_time.pkl) + set-up and "
+                f"outputs {gen_s - gen_chain} s, launches {generated[mode]}"
+                f"; first call of each kernel layout vs its plain version, "
+                f"max abs err {json.dumps(gen_errs)}")
+        for counts in (fit, resumed, sampled, *generated.values()):
             for k in KERNELS:
                 total[k] += counts[k]
     where = card() if dev.type == "cuda" else str(dev)
     for line in lines:
         print(f"cli: {line} on {where}", flush=True)
-    print(f"cli: launches over the four CLI runs {total}", flush=True)
+    print(f"cli: launches over the five CLI runs {total}", flush=True)
     return total
+
+
+def timed(phase, *args, **kw):
+    """`phase(*args, **kw)`, its wall seconds printed after it."""
+    t0 = time.perf_counter()
+    out = phase(*args, **kw)
+    print(f"wall: {phase.__name__} {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
 
 
 def main() -> int:
@@ -2070,15 +2554,18 @@ def main() -> int:
         PROFILE_TABLES = Path(sys.argv[sys.argv.index("--profile-only") + 1])
         phase_profile(dev)
         return 0
-    knn = phase_knn(dev)
-    phase_golden(dev)
-    dev_launches = phase_main(dev, profile)
-    pp = phase_pp(dev)
-    full_launches = phase_fullscale(dev, profile)
-    width_launches = phase_fullwidth(dev, profile)
-    ppbwd = phase_ppbwd(dev)
-    train_launches = phase_train(dev, profile)
-    cli_launches = phase_cli(dev)
+    knn = timed(phase_knn, dev)
+    timed(phase_golden, dev)
+    dev_launches = timed(phase_main, dev, profile)
+    pp = timed(phase_pp, dev)
+    per_step: dict = {}
+    full_launches = timed(phase_fullscale, dev, profile, keep=per_step)
+    width_launches = timed(phase_fullwidth, dev, profile)
+    tables_launches = timed(phase_tables, dev, per_step=per_step)
+    ppbwd = timed(phase_ppbwd, dev)
+    train_launches = timed(phase_train, dev, profile)
+    dist_launches = timed(phase_dist, dev)
+    cli_launches = timed(phase_cli, dev)
     kernels = [knn, pp, ppbwd]
     for kern in kernels:
         # `launches`: this slice's main path, the 2-epoch training run
@@ -2087,6 +2574,8 @@ def main() -> int:
         kern["launches_fullwidth_chain_t100"] = width_launches[kern["name"]]
         kern["launches_dev_chain"] = dev_launches[kern["name"]]
         kern["launches_cli"] = cli_launches[kern["name"]]
+        kern["launches_tables_chain"] = tables_launches[kern["name"]]
+        kern["launches_dist_rank0"] = dist_launches[kern["name"]]
         check(kern["launches"] > 0, f"{kern['name']}: not launched by the "
                                     f"training run")
     print(card())

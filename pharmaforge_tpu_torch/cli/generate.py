@@ -15,12 +15,14 @@ parsers of `preprocessing/structure.py` (PDB, mmCIF, SDF V2000): the path
 the JAX CLI takes without biopython and rdkit. Random draws come from one
 `torch.Generator` on `--device` (CUDA by default; without CUDA it raises
 unless given `--device cpu`), seeded with `--seed`. `--latency_mode on`
-raises: the step tables wait for ROADMAP A.2; `auto` and `off` run the
+builds the chain's step tables (`DiffusionConfig.precompute_step_tables`,
+JAX generate_pharmacophores.py:312-324); `auto` and `off` run the
 per-step chain, as the JAX CLI's `auto` does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import pickle
 import shutil
 import time
@@ -48,8 +50,6 @@ from pharmaforge_tpu_torch.utils.misc import (
     get_prot_atom_ph_type_maps,
     matmul_precision,
 )
-
-STEP_TABLES = "ROADMAP A.2 (step tables)"
 
 
 def parse_arguments(argv: Optional[Sequence[str]] = None):
@@ -91,9 +91,10 @@ def parse_arguments(argv: Optional[Sequence[str]] = None):
                         '(utils/misc.py)')
     p.add_argument('--latency_mode', type=str, default='auto',
                    choices=['auto', 'on', 'off'],
-                   help=f'precomputed per-step tables: "on" waits for '
-                        f'{STEP_TABLES}; "auto" and "off" run the per-step '
-                        f'chain')
+                   help='precomputed per-step tables '
+                        '(DiffusionConfig.precompute_step_tables) for the '
+                        'sampling chain: "on" builds them before the chain; '
+                        '"auto" and "off" run the per-step chain')
     p.add_argument('--device', type=str, default='cuda',
                    help="device to sample on; without CUDA, 'cpu' must be "
                         "given")
@@ -108,9 +109,6 @@ def parse_arguments(argv: Optional[Sequence[str]] = None):
                          'sample per pocket')
     if args.ref_ligand_file is None and len(args.residue_list) == 0:
         raise ValueError('Either ref_ligand or residue_list must be specified')
-    if args.latency_mode == 'on':
-        raise NotImplementedError(f'--latency_mode on: the step tables wait '
-                                  f'for {STEP_TABLES}')
     if args.ref_ligand_file is not None and len(args.residue_list) != 0:
         print('WARNING: Both reference ligand file and residue list specified. '
               'Reference ligand will be used to define pocket in this case.')
@@ -219,6 +217,11 @@ def _run(args, device: torch.device) -> Path:
 
     run_dir, which = resolve_run_dir(args.ckpt, args.model_dir)
     model, config = load_model(run_dir, which, device=device)
+    if args.latency_mode == 'on':
+        # the weights do not depend on the config: the same model, with
+        # the tables on
+        model.config = dataclasses.replace(model.config,
+                                           precompute_step_tables=True)
 
     dataset_config = config['dataset']
     prot_element_map, _ = get_prot_atom_ph_type_maps(dataset_config)

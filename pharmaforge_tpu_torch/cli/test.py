@@ -14,8 +14,10 @@ padded with its final pocket; `--pockets_per_call 1` runs pocket by
 pocket. Random draws come from one `torch.Generator` on `--device` (CUDA
 by default; without CUDA it raises unless given `--device cpu`), seeded
 with `--seed`; pharmacophore sizes from the numpy-seeded size
-distribution, as in the JAX CLI. `--n_devices` above 1 raises: it waits
-for ROADMAP A.7.
+distribution, as in the JAX CLI. `--n_devices N` (above 1) starts N
+local ranks (`parallel/mesh.py`), rank r on cuda:r or all on the CPU with
+`--device cpu`: each device batch is split over the ranks as
+`PocketSampler` documents, and rank 0 alone writes the outputs.
 """
 
 from __future__ import annotations
@@ -38,6 +40,11 @@ from pharmaforge_tpu_torch.config.load_from_config import (
 from pharmaforge_tpu_torch.constants import PH_IDX_TO_TYPE
 from pharmaforge_tpu_torch.data.batch import bucket_size
 from pharmaforge_tpu_torch.models.size_dist import PharmSizeDistribution
+from pharmaforge_tpu_torch.parallel.mesh import (
+    init_distributed,
+    is_main,
+    spawn_local,
+)
 from pharmaforge_tpu_torch.training.restore import load_model, resolve_run_dir
 from pharmaforge_tpu_torch.training.sampling import PocketSampler
 from pharmaforge_tpu_torch.utils.misc import (
@@ -45,7 +52,6 @@ from pharmaforge_tpu_torch.utils.misc import (
     matmul_precision,
 )
 
-MULTI_GPU = "ROADMAP A.7 (multi-GPU)"
 POCKET_FILES = "ROADMAP A.6 (preprocessing/receptor_utils.py)"
 
 
@@ -86,8 +92,8 @@ def parse_arguments(argv: Optional[Sequence[str]] = None):
                    help='float32 matmul policy of the sampling chain '
                         '(utils/misc.py)')
     p.add_argument('--n_devices', type=int, default=None,
-                   help=f'devices to shard multi-pocket sweeps over; above '
-                        f'1 waits for {MULTI_GPU}')
+                   help='data-parallel ranks (one per device) to split '
+                        'the sampling batches over (default: 1)')
     p.add_argument('--pockets_per_call', type=int, default=None,
                    help='pockets stacked into one device batch during '
                         'multi-pocket sweeps (default: max_batch_size // '
@@ -102,9 +108,6 @@ def parse_arguments(argv: Optional[Sequence[str]] = None):
     if args.pharm_sizes and len(args.pharm_sizes) != args.samples_per_pocket:
         raise ValueError('If pharm_sizes list is provided, must be of length '
                          'samples per pocket')
-    if args.n_devices is not None and args.n_devices > 1:
-        raise NotImplementedError(f'--n_devices {args.n_devices}: sharded '
-                                  f'sampling waits for {MULTI_GPU}')
     return args
 
 
@@ -113,14 +116,29 @@ def main(argv: Optional[Sequence[str]] = None) -> Path:
     output directory."""
     args = parse_arguments(argv)
     device = resolve_device(args.device)
+    if args.n_devices is not None and args.n_devices > 1:
+        return spawn_local(args.n_devices, _rank_main, args)[0]
     with matmul_precision(args.matmul_precision):
         return _run(args, device)
 
 
+def _rank_main(args) -> Path:
+    """One rank of a data-parallel run: join the group, sample, leave."""
+    import torch.distributed as dist
+    device = init_distributed(device=args.device)
+    try:
+        with matmul_precision(args.matmul_precision):
+            return _run(args, device)
+    finally:
+        dist.destroy_process_group()
+
+
 def _run(args, device: torch.device) -> Path:
+    main_rank = is_main()
     run_dir, which = resolve_run_dir(args.ckpt, args.model_dir)
     output_dir = args.output_dir or (run_dir / 'samples')
-    output_dir.mkdir(parents=True, exist_ok=True)
+    if main_rank:
+        output_dir.mkdir(parents=True, exist_ok=True)
     pharm_dir = output_dir
 
     model, config = load_model(run_dir, which, device=device)
@@ -164,7 +182,10 @@ def _run(args, device: torch.device) -> Path:
 
     def write_pocket_outputs(dataset_idx, sampled_pharms,
                              pocket_sample_time):
-        """Per-pocket artifact layout (reference test.py:185-235)."""
+        """Per-pocket artifact layout (reference test.py:185-235), written
+        by rank 0."""
+        if not main_rank:
+            return
         pocket_sampling_times.append(pocket_sample_time)
         pocket_dir = pharm_dir / f'pocket_{dataset_idx}'
         pocket_dir.mkdir(exist_ok=True)
@@ -243,9 +264,10 @@ def _run(args, device: torch.device) -> Path:
                                      chunk_time / n_real)
         total = time.time() - sweep_start
         n_samples = sum(len(s[2]) for s in sweep)
-        print(f'Sweep: {len(sweep)} pockets x {samples_each} samples in '
-              f'{total:.2f}s stacked {ppc}/call '
-              f'({n_samples / total:.2f} samples/s)')
+        if main_rank:
+            print(f'Sweep: {len(sweep)} pockets x {samples_each} samples in '
+                  f'{total:.2f}s stacked {ppc}/call '
+                  f'({n_samples / total:.2f} samples/s)')
     else:
         for dataset_idx, pocket, pharm_sizes, init_com in sweep:
             pocket_sample_start = time.time()
@@ -257,7 +279,7 @@ def _run(args, device: torch.device) -> Path:
             write_pocket_outputs(dataset_idx, sampled_pharms,
                                  time.time() - pocket_sample_start)
 
-    if args.metrics:
+    if args.metrics and main_rank:
         analyzer = SampleAnalyzer()
         metrics = analyzer.analyze(all_pharms)
         print(metrics)

@@ -10,8 +10,14 @@ checkpoint directories, and `--debug` caps an epoch at 100 batches with
 wandb off. A new run writes `<output_dir>/<name>_<run_id>/` with
 `config.yaml` (holding `resume.run_id`), `metrics.jsonl` and
 `checkpoints/`. It runs on `--device` (CUDA by default; without CUDA it
-raises unless given `--device cpu`). The JAX CLI's multi-device flags
-parse and raise: they wait for ROADMAP A.7.
+raises unless given `--device cpu`).
+
+Data parallelism (`parallel/mesh.py`, one process per device): `--n_devices
+N` starts N local ranks, rank r on cuda:r (or all on the CPU with
+`--device cpu`); `--distributed` joins a group started elsewhere, with
+`--coordinator host:port`, `--num_processes` and `--process_id`, each
+taken from `torchrun`'s environment where not given. Rank 0 alone makes
+the synthetic dataset, the run dir, config.yaml, metrics and checkpoints.
 """
 
 from __future__ import annotations
@@ -31,13 +37,19 @@ from pharmaforge_tpu_torch.config.load_from_config import (
     model_from_config,
 )
 from pharmaforge_tpu_torch.config.yaml_io import dump_file, load_file
+from pharmaforge_tpu_torch.parallel.mesh import (
+    barrier,
+    broadcast_object,
+    init_distributed,
+    is_main,
+    spawn_local,
+)
 from pharmaforge_tpu_torch.training.logging import (
     MetricsLogger,
+    NullLogger,
     generate_run_id,
 )
 from pharmaforge_tpu_torch.training.trainer import Trainer
-
-MULTI_GPU = "ROADMAP A.7 (multi-GPU)"
 
 
 def parse_arguments(argv: Optional[Sequence[str]] = None):
@@ -50,34 +62,30 @@ def parse_arguments(argv: Optional[Sequence[str]] = None):
                    help="device to train on; without CUDA, 'cpu' must be "
                         "given")
     p.add_argument('--n_devices', type=int, default=None,
-                   help=f'data-parallel devices; above 1 waits for '
-                        f'{MULTI_GPU}')
+                   help='data-parallel ranks started on this host, one per '
+                        'device (cuda:0.., or the CPU with --device cpu)')
     p.add_argument('--distributed', action='store_true',
-                   help=f'multi-host data parallelism; waits for '
-                        f'{MULTI_GPU}')
+                   help='join a data-parallel process group started '
+                        'elsewhere; rank 0 owns the run dir, logs and '
+                        'checkpoints')
     p.add_argument('--coordinator', type=str, default=None,
-                   help=f'coordinator address for --distributed; waits for '
-                        f'{MULTI_GPU}')
+                   help='host:port of rank 0 for --distributed (default: '
+                        'MASTER_ADDR:MASTER_PORT)')
     p.add_argument('--num_processes', type=int, default=None,
-                   help=f'process count for --distributed; waits for '
-                        f'{MULTI_GPU}')
+                   help='ranks of the group for --distributed (default: '
+                        'WORLD_SIZE)')
     p.add_argument('--process_id', type=int, default=None,
-                   help=f'this process rank for --distributed; waits for '
-                        f'{MULTI_GPU}')
+                   help='this process rank for --distributed (default: '
+                        'RANK)')
     p = register_hyperparameter_args(p)
     args = p.parse_args(argv)
     if args.config is not None and args.resume is not None:
         raise ValueError('only specify a config file or a resume file but '
                          'not both')
-    multi = [flag for flag, on in (
-        ('--n_devices', args.n_devices is not None and args.n_devices > 1),
-        ('--distributed', args.distributed),
-        ('--coordinator', args.coordinator is not None),
-        ('--num_processes', args.num_processes is not None),
-        ('--process_id', args.process_id is not None)) if on]
-    if multi:
-        raise NotImplementedError(f"{', '.join(multi)}: multi-device "
-                                  f"training waits for {MULTI_GPU}")
+    if args.distributed and args.n_devices is not None \
+            and args.n_devices > 1:
+        raise ValueError('--n_devices starts its own ranks; it does not '
+                         'join --distributed')
     return args
 
 
@@ -119,7 +127,27 @@ def main(argv: Optional[Sequence[str]] = None) -> Path:
     """Train as the command line `argv` says; returns the run dir."""
     args = parse_arguments(argv)
     device = resolve_device(args.device)
+    if args.n_devices is not None and args.n_devices > 1:
+        return spawn_local(args.n_devices, _rank_main, args)[0]
+    if args.distributed:
+        return _rank_main(args, args.coordinator, args.num_processes,
+                          args.process_id)
+    return _train(args, device)
 
+
+def _rank_main(args, coordinator=None, num_processes=None,
+               process_id=None) -> Path:
+    """One rank of a data-parallel run: join the group, train, leave."""
+    import torch.distributed as dist
+    device = init_distributed(coordinator, num_processes, process_id,
+                              args.device)
+    try:
+        return _train(args, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, device) -> Path:
     ckpt_resume = None
     if args.resume is not None:
         run_dir, ckpt_resume = resume_target(args.resume)
@@ -130,7 +158,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Path:
 
     seed = args.seed if args.seed is not None else 0
     config = merge_config_and_args(load_file(config_file), args)
-    maybe_make_synthetic(config)
+    if is_main():
+        maybe_make_synthetic(config)
+    # the other ranks read the dataset rank 0 may have just written
+    barrier()
 
     data_module = data_module_from_config(config)
     model = model_from_config(config, device=device, seed=seed)
@@ -141,24 +172,28 @@ def main(argv: Optional[Sequence[str]] = None) -> Path:
         wandb_config['name'] = 'debug_run'
 
     output_dir = Path(config['training']['output_dir'])
-    output_dir.mkdir(parents=True, exist_ok=True)
+    if is_main():
+        output_dir.mkdir(parents=True, exist_ok=True)
 
     if args.resume is None:
-        run_id = generate_run_id()
+        # every rank takes rank 0's run id
+        run_id = broadcast_object(generate_run_id())
         wandb_config['id'] = run_id
         name = wandb_config.get('name', 'run').replace(' ', '-')
         run_dir = output_dir / f'{name}_{run_id}'
         config.setdefault('resume', {})['run_id'] = run_id
-        run_dir.mkdir(parents=True, exist_ok=True)
-        print('Results are being written to:', run_dir)
-        dump_file(config, run_dir / 'config.yaml')
+        if is_main():
+            run_dir.mkdir(parents=True, exist_ok=True)
+            print('Results are being written to:', run_dir)
+            dump_file(config, run_dir / 'config.yaml')
     else:
         wandb_config['id'] = config.get('resume', {}).get('run_id',
                                                           'resumed')
         wandb_config['resume'] = 'must'
 
     wandb_config['save_dir'] = str(output_dir)
-    logger = MetricsLogger(run_dir, wandb_config, full_config=config)
+    logger = (MetricsLogger(run_dir, wandb_config, full_config=config)
+              if is_main() else NullLogger())
     trainer = Trainer(config, run_dir, logger=logger, debug=args.debug,
                       seed=seed, device=device)
     try:

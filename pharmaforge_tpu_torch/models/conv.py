@@ -21,8 +21,10 @@ stream, layer norms and node updates stay fp32 (JAX conv.py:583-586).
 Sampling runs the JAX package's reorderings of the same math
 (`GVPMultiEdgeConv.forward`): the compact prot tail (`prot_dst_idx`), the
 group-level prot state of the first conv (`prot_feats_group_size`,
-`pf_src_group_size`), and the pocket-copy correction (`emit_clean_prot`
-on the first conv, `pp_correction` on the second).
+`pf_src_group_size`), the pocket-copy correction (`emit_clean_prot`
+on the first conv, `pp_correction` on the second), and the step tables
+(`step_tables`, then `pp_precomputed` and `pf_table` on the first
+conv).
 
 Where the JAX package scatters and gathers with one-hot matmuls (a TPU
 workaround), the port uses indexed loads, `scatter_add_` and
@@ -49,6 +51,7 @@ from pharmaforge_tpu_torch.models.gvp import (
     GVPLayerNorm,
     gvp_specs,
 )
+from pharmaforge_tpu_torch.ops.geometry import norm_no_nan
 from pharmaforge_tpu_torch.ops.pp_message import (
     COMPUTE_DTYPES,
     fused_message_agg,
@@ -109,10 +112,47 @@ def message_specs(n: int, vector_size: int, scalar_size: int,
     return specs
 
 
+def source_table(chain: GVPChain, h_src, dtype: torch.dtype):
+    """The first message GVP's source-scalar product per node,
+    h_src @ W1_h in `dtype` (JAX conv.py:251-266, `return_table` with zero
+    source vectors): the half of the chain that does not depend on the
+    edge, which the step tables compute once for every step of a chain."""
+    w1_h = chain[0].to_feats_out[0].weight[:, :h_src.shape[-1]]
+    return h_src.to(dtype) @ w1_h.T.to(dtype)
+
+
+def _chain_from_table(chain: GVPChain, pre_g, edge, n_vectors: int,
+                      dtype: torch.dtype):
+    """The message chain on edges whose first GVP takes its source-scalar
+    product from a gathered `source_table` (pre_g [B,Nd,M,S]) and whose
+    source vectors are zero. GVP 0's scalars are act(pre + rbf @ W1_d +
+    sh @ W1_sh + b), each product in `dtype`, added in the JAX package's
+    order (conv.py:321-329), so a bf16 table rounds where JAX rounds it."""
+    g0 = chain[0]
+    s, r = pre_g.shape[-1], edge.d_rbf.shape[-1]
+    x_dir = edge.x_dir.to(dtype)[..., None, :]
+    vec_in = torch.cat([x_dir, x_dir.new_zeros(
+        x_dir.shape[:-2] + (n_vectors, 3))], dim=-2)
+    vh = torch.einsum("...vc,vh->...hc", vec_in, g0.Wh.to(dtype))
+    vu = torch.einsum("...hc,hu->...uc", vh, g0.Wu.to(dtype))
+    sh = norm_no_nan(vh.float()).to(dtype)
+    lin, act = g0.to_feats_out
+    w = lin.weight.to(dtype)
+    feats = act(pre_g + edge.d_rbf.to(dtype) @ w[:, s:s + r].T
+                + sh @ w[:, s + r:].T + lin.bias.to(dtype))
+    gates = g0.scalar_to_vector_gates
+    gating = nn.functional.linear(feats, gates.weight.to(dtype),
+                                  gates.bias.to(dtype))
+    data = (feats, g0.vectors_activation(gating)[..., None] * vu)
+    for layer in list(chain)[1:]:
+        data = layer(data)
+    return data
+
+
 def edge_messages(chain: GVPChain, h_src, v_src, edge,
                   src_vectors_zero: bool = False,
                   dtype: torch.dtype = torch.float32,
-                  src_group_size: int = 1):
+                  src_group_size: int = 1, table=None):
     """Per-edge messages (scalars [B,Nd,M,S], vectors [B,Nd,M,V,3]) in
     `dtype`.
 
@@ -122,7 +162,13 @@ def edge_messages(chain: GVPChain, h_src, v_src, edge,
     layout). `src_group_size` = C > 1: the source rows are per pocket
     group ([B/C, ...]) and batch row b gathers from group b // C. With
     `src_vectors_zero` (the first conv, whose vector channels start at
-    zero) the source vectors are not gathered."""
+    zero) the source vectors are not gathered. `table` (a
+    `source_table` of the source rows, with `src_vectors_zero`) is
+    gathered in place of `h_src`, which is then not read."""
+    if table is not None:
+        if not src_vectors_zero:
+            raise ValueError("a source table needs zero source vectors")
+        h_src = table
     if isinstance(edge, PreGatheredEdgeData):
         b, f, k = edge.mask.shape
         h_g = h_src.reshape(b, f, k, -1)
@@ -143,6 +189,8 @@ def edge_messages(chain: GVPChain, h_src, v_src, edge,
         h_g = h_src[:, None].expand(-1, nd, -1, -1)
         v_g = None if src_vectors_zero else \
             v_src[:, None].expand(-1, nd, -1, -1, -1)
+    if table is not None:
+        return _chain_from_table(chain, h_g, edge, v_src.shape[-2], dtype)
     if v_g is None:
         v_g = h_g.new_zeros(h_g.shape[:-1] + v_src.shape[-2:])
     sca_in = torch.cat([h_g, edge.d_rbf], dim=-1).to(dtype)
@@ -383,6 +431,27 @@ class GVPMultiEdgeConv(nn.Module):
             torch.sum(ed.mask.to(torch.float32), dim=2), copies, dim=0)
         return (*_normalize(s_agg, v_agg, cnt, self.use_mean), cnt)
 
+    def step_tables(self, prot_scalars, pp_edge, pf: bool):
+        """The (timestep, pocket)-only work of a first conv (zero source
+        vectors) for prot scalars [R, P, S] (JAX
+        dynamics.py:precompute_sampling_tables): the pp aggregate
+        (s [R,P,S], v [R,P,V,3], count [R,P]) over `pp_edge` [R, P, K]
+        before the message norm, None where this conv has no pp chain;
+        and, where `pf`, the pf chain's `source_table` [R, P, S] in the
+        compute dtype, else None. The same code as the per-step path."""
+        pp = None
+        chain = self.edge_message_fns["prot_pp_prot"] \
+            if "prot_pp_prot" in self.edge_message_fns else None
+        if chain is not None:
+            zeros = prot_scalars.new_zeros(1, 1, self.vector_size, 3)
+            s_msg, v_msg = edge_messages(chain, prot_scalars, zeros, pp_edge,
+                                         True, self.dtype)
+            pp = _aggregate(s_msg.float(), v_msg.float(), pp_edge.mask,
+                            self.use_mean)
+        table = source_table(self.edge_message_fns["prot_pf_pharm"],
+                             prot_scalars, self.dtype) if pf else None
+        return pp, table
+
     def _update(self, nt: str, h, v, s_msg, v_msg, mask, generator):
         """Residual update of node type `nt` from its normalized
         aggregates; padded slots stay exactly zero."""
@@ -402,7 +471,9 @@ class GVPMultiEdgeConv(nn.Module):
                 pf_src_group_size: int = 1,
                 prot_feats_group_size: int = 1,
                 emit_clean_prot: bool = False,
-                pp_correction: Optional[dict] = None):
+                pp_correction: Optional[dict] = None,
+                pp_precomputed: Optional[tuple] = None,
+                pf_table: Optional[torch.Tensor] = None):
         """node_feats[nt] = (scalars [B,N,S], coords [B,N,3],
         vectors [B,N,V,3]); `bundle` from `edges.build_edge_bundle`.
         `generator` draws the dropout masks in train mode.
@@ -433,7 +504,14 @@ class GVPMultiEdgeConv(nn.Module):
         clean_v [G,P,V,3])). `pp_correction` (the next conv) takes the
         pp aggregate from `_fused_pp_corrected`; its keys are documented
         there. It engages on the fused path with a grouped pp edge, as in
-        the JAX package."""
+        the JAX package.
+
+        The step tables of a sampling chain (the first conv, JAX
+        conv.py:641-690): `pp_precomputed` = (s, v, count) of
+        `step_tables`, at pocket-group level when `pp_src_group_size` > 1,
+        replaces the pp chain and its aggregation; `pf_table` (a
+        `source_table`, group-level when `pf_src_group_size` > 1) is
+        gathered in place of the pf source scalars."""
         if emit_clean_prot and self.training:
             raise ValueError("emit_clean_prot requires eval mode "
                              "(deterministic)")
@@ -449,6 +527,7 @@ class GVPMultiEdgeConv(nn.Module):
             group = pp_src_group_size if ename == "pp" else 1
             b_full = node_masks[dst_nt].shape[0]
             compact = prot_dst_idx is not None and dst_nt == "prot"
+            pp_pre = ename == "pp" and pp_precomputed is not None
             # the JAX package's gate (conv.py:850-852)
             fused = (self.fused_pp and ename == "pp" and ed.idx is not None
                      and not src_vectors_zero and group == 1)
@@ -464,7 +543,7 @@ class GVPMultiEdgeConv(nn.Module):
                     copies, ed = ed.copies, ed.as_edge_data()
                 else:
                     ed = ed.expand()
-            if group > 1:
+            if group > 1 and not pp_pre:
                 if not src_vectors_zero:
                     raise ValueError(
                         "pp_src_group_size > 1 requires src_vectors_zero: "
@@ -483,7 +562,12 @@ class GVPMultiEdgeConv(nn.Module):
                     ed = EdgeData(*(first(a) for a in ed))
 
             chain = self.edge_message_fns["_".join(etype)]
-            if fused and compact:
+            if pp_pre:
+                res = pp_precomputed
+                if compact:
+                    res = _compact_prot(*res, prot_dst_idx,
+                                        node_masks["prot"], group)
+            elif fused and compact:
                 res = self._fused_pp_compact(chain, h_src, v_src, ed,
                                              copies, prot_dst_idx,
                                              node_masks["prot"])
@@ -496,7 +580,7 @@ class GVPMultiEdgeConv(nn.Module):
                 s_msg, v_msg = edge_messages(
                     chain, h_src, v_src, ed, src_vectors_zero, self.dtype,
                     src_group_size=pf_src_group_size if ename == "pf"
-                    else 1)
+                    else 1, table=pf_table if ename == "pf" else None)
                 s_msg, v_msg = s_msg.float(), v_msg.float()
                 if isinstance(ed, ReverseEdgeData):
                     agg_fn = (_compact_scatter_aggregate if compact

@@ -27,16 +27,20 @@ from torch.nn import functional as F
 
 from pharmaforge_tpu_torch import resolve_device
 from pharmaforge_tpu_torch.data.batch import PharmComplexBatch
-from pharmaforge_tpu_torch.models.dynamics import PharmRecDynamics
+from pharmaforge_tpu_torch.models.dynamics import (
+    PharmRecDynamics,
+    precompute_sampling_tables,
+)
 from pharmaforge_tpu_torch.models.edges import (
     GroupedEdgeData,
     build_pp_edge,
     build_pp_out_edges,
 )
-from pharmaforge_tpu_torch.models.gvp import reset_parameters_
+from pharmaforge_tpu_torch.models.gvp import batch_rows, reset_parameters_
 from pharmaforge_tpu_torch.models.schedules import make_gamma_table
 from pharmaforge_tpu_torch.ops.geometry import masked_com
 from pharmaforge_tpu_torch.ops.pp_message import COMPUTE_DTYPES
+from pharmaforge_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 def sigma_of_gamma(gamma: torch.Tensor) -> torch.Tensor:
@@ -69,8 +73,9 @@ class DiffusionConfig:
 
     `compact_prot_tail` and `dedup_prot_encoder` switch the JAX package's
     sampling reorderings of the same math (the compact prot tail, the prot
-    encoder once per pocket group); `precompute_step_tables` is accepted
-    and not ported (the full per-step computation runs). `fused_pp` other
+    encoder once per pocket group); `precompute_step_tables` builds the
+    step tables of a chain where they fit `precompute_table_budget`
+    bytes (`sample_given_receptor`). `fused_pp` other
     than False runs the middle convs' prot-prot chain through the fused
     kernel (`ops/pp_message.py`), and with it the pocket-copy correction
     (`sample_given_receptor`'s `pp_k_out`); `compute_dtype` is "float32"
@@ -166,6 +171,44 @@ class DiffusionConfig:
         )
 
 
+def step_table_plan(cfg: DiffusionConfig, groups: int, prot_slots: int,
+                    pp_k: int) -> Tuple[int, int]:
+    """(bytes of a chain's step tables, steps built per chunk) for `groups`
+    pocket groups of `prot_slots` atoms and pp lists of `pp_k`.
+
+    The bytes are the JAX package's budget count (diffusion.py:465-468):
+    per step and atom, the encoder output, the pp aggregate and counts in
+    fp32 and the pf table in the compute dtype. Each chunk of steps also
+    holds the first conv's pp chain on every edge of its rows, counted
+    here as eight fp32 scalar rows and the vector rows of each edge; the
+    chunk takes as many steps as that fits the same budget, at least
+    one."""
+    s, v = cfg.n_hidden_scalars, cfg.vector_size
+    elt = 2 if cfg.compute_dtype == "bfloat16" else 4
+    table = cfg.n_timesteps * groups * prot_slots * (
+        4 * (2 * s + 3 * v + 1) + elt * s)
+    work = groups * prot_slots * max(pp_k, 1) * 4 * (8 * s + 12 * (v + 1))
+    return table, max(1, min(cfg.n_timesteps,
+                             cfg.precompute_table_budget // work))
+
+
+def draw_chain_noise(generator: Optional[torch.Generator], b: int, f: int,
+                     pharm_nf: int, n_t: int, initial: bool = True,
+                     steps: bool = True) -> Dict[str, torch.Tensor]:
+    """The draws of a reverse chain from `generator` (torch's default
+    generator on the CPU when None), on the generator's device, in the
+    chain's order: with `initial`, 'x_T' [B,F,3] and 'h_T' [B,F,nf]; with
+    `steps`, 'pos' [T,B,F,3] and 'feat' [T,B,F,nf]."""
+    dev = generator.device if generator is not None else "cpu"
+    shapes = {}
+    if initial:
+        shapes.update(x_T=(b, f, 3), h_T=(b, f, pharm_nf))
+    if steps:
+        shapes.update(pos=(n_t, b, f, 3), feat=(n_t, b, f, pharm_nf))
+    return {k: torch.randn(shape, generator=generator, device=dev)
+            for k, shape in shapes.items()}
+
+
 def _step_coefficients(gamma_table: np.ndarray, cfg: DiffusionConfig
                        ) -> np.ndarray:
     """Per-step scalars of the reverse chain in float32, rows in loop
@@ -220,7 +263,8 @@ class PharmacophoreDiffusion(nn.Module):
 
     def loss(self, batch: PharmComplexBatch,
              generator: Optional[torch.Generator] = None, train: bool = True,
-             phase: str = "train", noise: Optional[Dict[str, Any]] = None
+             phase: str = "train", noise: Optional[Dict[str, Any]] = None,
+             rows: Optional[Tuple[int, int]] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Forward diffusion + denoiser + losses (reference
         pharmacodiff.py:162-243, JAX diffusion.py:232-346), with masked
@@ -230,7 +274,17 @@ class PharmacophoreDiffusion(nn.Module):
         `train` sets train mode (dropout on) or eval mode. `noise` injects
         the draws: 't_int' [B] int, 'eps_x' [B,F,3], 'eps_h' [B,F,nf];
         draws not injected, and the dropout masks, come from `generator`
-        (on the model's device), which is then required."""
+        (on the model's device), which is then required.
+
+        `rows` = (start, n_global): `batch` holds rows start.. of a global
+        batch of n_global rows, split over the ranks of a process group
+        (`parallel/mesh.py`). The draws and dropout masks are made at the
+        global shape and sliced (injected draws are this slice's), the
+        masked sums are divided by the global valid-centre count, and the
+        metrics returned are the global batch's (one all-reduce each, JAX
+        diffusion.py:316-321); the total returned is this slice's share
+        of the global total, so its gradients summed over the ranks are
+        the global batch's."""
         cfg = self.config
         self.train(train)
         dev = self.device
@@ -264,16 +318,18 @@ class PharmacophoreDiffusion(nn.Module):
         prot_x = prot_x - com[:, None]
         x0_clean, h0_clean = x0, h0
 
+        start, n_global = rows if rows is not None else (0, b)
+        mine = slice(start, start + b)
         t_int = draw("t_int", lambda: torch.randint(
-            0, cfg.n_timesteps, (b,), generator=generator,
-            device=dev)).long()
+            0, cfg.n_timesteps, (n_global,), generator=generator,
+            device=dev)[mine]).long()
         t = t_int.to(torch.float32) / cfg.n_timesteps
         eps_x = draw("eps_x", lambda: torch.randn(
-            x0.shape, generator=generator, device=dev)).float() \
-            * fmask[..., None]
+            (n_global,) + x0.shape[1:], generator=generator,
+            device=dev)[mine]).float() * fmask[..., None]
         eps_h = draw("eps_h", lambda: torch.randn(
-            h0.shape, generator=generator, device=dev)).float() \
-            * fmask[..., None]
+            (n_global,) + h0.shape[1:], generator=generator,
+            device=dev)[mine]).float() * fmask[..., None]
 
         gamma_t = self._tensor(np.asarray(self.gamma_table, np.float32))[
             t_int]
@@ -288,9 +344,11 @@ class PharmacophoreDiffusion(nn.Module):
             x_t = (x_t - sampled_com[:, None]) * fmask[..., None]
             prot_x = prot_x - sampled_com[:, None]
 
-        h_dyn, x_dyn = self.dynamics(h_t, x_t, pharm_mask, prot_h, prot_x,
-                                     prot_mask, t, pp_edge=pp_edge,
-                                     generator=generator)
+        with batch_rows(start, n_global):
+            h_dyn, x_dyn = self.dynamics(h_t, x_t, pharm_mask, prot_h,
+                                         prot_x, prot_mask, t,
+                                         pp_edge=pp_edge,
+                                         generator=generator)
 
         # losses (pharmacodiff.py:204-232)
         if cfg.endpoint_param_feat:
@@ -314,7 +372,10 @@ class PharmacophoreDiffusion(nn.Module):
         weight_loss = weight_metric if cfg.weighted_loss else fmask
         h_loss = torch.sum(h_loss * weight_loss)
         x_loss = torch.sum(x_loss * weight_loss)
-        n_valid = torch.clamp(torch.sum(fmask), min=1.0)
+        n_valid = torch.sum(fmask)
+        if rows is not None:
+            n_valid = all_reduce_sum(n_valid)
+        n_valid = torch.clamp(n_valid, min=1.0)
         losses = {
             f"{phase} pos loss": x_loss / (n_valid * 3.0),
             f"{phase} feat loss": h_loss / (n_valid * float(cfg.pharm_nf)),
@@ -334,6 +395,14 @@ class PharmacophoreDiffusion(nn.Module):
             f"{phase} weighted accuracy":
                 torch.sum(acc * weight_metric) / n_valid,
         }
+        if rows is not None:
+            # the global batch's metrics: the sums of every rank's shares
+            parts = {**losses, **metrics}
+            summed = all_reduce_sum(torch.stack(
+                [v.detach() for v in parts.values()]))
+            parts = dict(zip(parts, summed.unbind()))
+            losses = {k: parts[k] for k in losses}
+            metrics = {k: parts[k] for k in metrics}
         metrics[f"{phase} total error"] = (
             metrics[f"{phase} position error"] + 1.0
             - metrics[f"{phase} accuracy"])
@@ -370,7 +439,15 @@ class PharmacophoreDiffusion(nn.Module):
         the second conv (the JAX package's argument; `PocketSampler`
         probes it with `probe_pp_k_out`): the pp edge's out-edge tables are
         built once per chain with `pp_k_out` slots per atom, and a value
-        below the pp graph's maximum out-degree raises ValueError."""
+        below the pp graph's maximum out-degree raises ValueError.
+
+        With `precompute_step_tables` the first conv's (timestep,
+        pocket)-only work is built for all T steps before the loop
+        (`dynamics.precompute_sampling_tables`, in chunks of steps sized
+        by `step_table_plan`) and each step reads its slice. Where the
+        tables' bytes exceed `precompute_table_budget`, the chain computes
+        every step in full, as the JAX package does: a documented gate of
+        the configuration, not a fallback of the device."""
         cfg = self.config
         self.eval()
         dev = self.device
@@ -404,27 +481,34 @@ class PharmacophoreDiffusion(nn.Module):
             _, pp_edge = build_pp_edge(prot_x0, prot_mask,
                                        self.cutoffs["pp"], cfg.pp_k_max)
 
+        # the (timestep, pocket)-only work of the first conv, for every
+        # step at once, where the tables fit the budget
+        tables = None
+        if cfg.precompute_step_tables:
+            c = pocket_group_size
+            ed_g = pp_edge.as_edge_data() if c > 1 else pp_edge
+            table_bytes, chunk = step_table_plan(
+                cfg, ed_g.mask.shape[0], ed_g.mask.shape[1],
+                ed_g.mask.shape[2])
+            if table_bytes <= cfg.precompute_table_budget:
+                t_values = torch.tensor(
+                    [np.float32(s + 1) / np.float32(cfg.n_timesteps)
+                     for s in range(cfg.n_timesteps - 1, -1, -1)],
+                    dtype=torch.float32, device=dev)
+                tables = precompute_sampling_tables(
+                    self.dynamics, prot_h[::c], prot_mask[::c], ed_g,
+                    t_values, chunk)
+
         prot_x = prot_x0 - init_pharm_com[:, None]
         n_t = cfg.n_timesteps
         noise = dict(noise or {})
-        gen_dev = generator.device if generator is not None else "cpu"
-
-        def draw(shape):
-            return torch.randn(shape, generator=generator,
-                               device=gen_dev).to(dev)
-
-        if "x_T" in noise:
-            x_t = self._tensor(noise["x_T"], torch.float32) * fmask
-            h_t = self._tensor(noise["h_T"], torch.float32) * fmask
-        else:
-            x_t = draw((b, f, 3)) * fmask
-            h_t = draw((b, f, cfg.pharm_nf)) * fmask
-        if "pos" in noise:
-            pos_noise = self._tensor(noise["pos"], torch.float32)
-            feat_noise = self._tensor(noise["feat"], torch.float32)
-        else:
-            pos_noise = draw((n_t, b, f, 3))
-            feat_noise = draw((n_t, b, f, cfg.pharm_nf))
+        noise = {**draw_chain_noise(generator, b, f, cfg.pharm_nf, n_t,
+                                    initial="x_T" not in noise,
+                                    steps="pos" not in noise), **noise}
+        x_t = self._tensor(noise["x_T"], torch.float32) * fmask
+        h_t = self._tensor(noise["h_T"], torch.float32) * fmask
+        pos_noise = self._tensor(noise["pos"], torch.float32)
+        feat_noise = self._tensor(noise["feat"], torch.float32)
         x_init, h_init, prot_x_init = x_t, h_t, prot_x
 
         def frame(x_t, h_t, prot_x):
@@ -446,7 +530,8 @@ class PharmacophoreDiffusion(nn.Module):
             pred_h, pred_x = self.dynamics(
                 h_t, x_t, pharm_mask, prot_h, prot_x, prot_mask, t_arr,
                 pp_edge=pp_edge, pocket_group_size=pocket_group_size,
-                pp_out=pp_out)
+                pp_out=pp_out,
+                step_tables=None if tables is None else tables.step(i))
             if cfg.endpoint_param_coord:
                 mu_pos = c_x * x_t + c_pred * pred_x
             else:

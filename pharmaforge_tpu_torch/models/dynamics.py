@@ -10,13 +10,15 @@ In eval mode the forward runs the JAX package's sampling dataflow: the
 compact prot tail (the last prot update on the pf-listed atoms only), the
 prot encoder once per pocket group when the first conv is the compact one,
 and, given the pp out-edges (`pp_out`), the pocket-copy correction of the
-second conv. Train mode keeps the full-width path, as in JAX. The JAX
-package's step tables (`precompute_step_tables`) are not ported.
+second conv. Train mode keeps the full-width path, as in JAX. A sampling
+chain may also hoist the first conv's (timestep, pocket)-only work out
+of its loop into step tables (`precompute_sampling_tables`, JAX :52-123)
+and hand the denoiser one step's slice (`step_tables`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -26,10 +28,81 @@ from pharmaforge_tpu_torch.models.conv import (
     message_norm_is_dynamic,
 )
 from pharmaforge_tpu_torch.models.edges import (
+    EdgeData,
     PreGatheredEdgeData,
     build_edge_bundle,
 )
 from pharmaforge_tpu_torch.models.gvp import GVPChain
+
+
+class SamplingTables(NamedTuple):
+    """The first conv's work that depends only on (timestep, pocket), for
+    every step of a reverse chain (JAX dynamics.py:52-61); leading axis T
+    in loop order, then the pocket groups G:
+
+    enc       the prot encoder's masked output           [T, G, P, S]
+    pp_s/v    the first conv's pp aggregate before the message norm
+              [T, G, P, S] / [T, G, P, V, 3] fp32, and
+    pp_cnt    its per-atom edge counts [T, G, P]; None where that conv has
+              no pp chain (n_convs=1 with the pruned prot tail)
+    pf_table  the pf chain's per-node source table in the compute dtype
+              [T, G, P, S]; None without knn pf (pf_k 0)
+    """
+
+    enc: torch.Tensor
+    pp_s: Optional[torch.Tensor]
+    pp_v: Optional[torch.Tensor]
+    pp_cnt: Optional[torch.Tensor]
+    pf_table: Optional[torch.Tensor]
+
+    def step(self, i: int) -> tuple:
+        """Step i's slice of every table (views; None stays None)."""
+        return tuple(None if a is None else a[i] for a in self)
+
+
+@torch.no_grad()
+def precompute_sampling_tables(dynamics: "PharmRecDynamics", prot_h_g,
+                               prot_mask_g, pp_edge_g, t_values,
+                               chunk_steps: Optional[int] = None
+                               ) -> SamplingTables:
+    """`SamplingTables` of a reverse chain (JAX dynamics.py:64-123).
+
+    prot_h_g [G, P, rec_nf], prot_mask_g [G, P] and `pp_edge_g` (EdgeData
+    [G, P, K]) are at pocket-group level; t_values [T] are the chain's
+    timesteps in loop order. The T axis folds into the batch axis, so the
+    per-step code runs over T-fold larger operands. `chunk_steps` builds
+    that many steps at a time (the rows are independent, so the tables
+    are the same), bounding the memory of the pp chain's edge activations;
+    None builds all T at once."""
+    t_count = t_values.shape[0]
+    g, p = prot_mask_g.shape
+    conv0 = dynamics.noise_predictor.conv_layers[0]
+    pf = bool(dynamics.pf_k and dynamics.pf_k > 0)
+    chunk = t_count if not chunk_steps else min(chunk_steps, t_count)
+    pm = prot_mask_g.to(torch.float32)[..., None]
+    outs = None
+    for t0 in range(0, t_count, chunk):
+        tv = t_values[t0:t0 + chunk]
+        n = tv.shape[0]
+
+        def tile(a):
+            return a.unsqueeze(0).expand(n, *a.shape).reshape(
+                n * g, *a.shape[1:])
+
+        enc = dynamics.prot_encoder(torch.cat(
+            [tile(prot_h_g), tv[:, None, None, None].expand(n, g, p, 1)
+             .reshape(n * g, p, 1)], dim=-1)) * tile(pm)
+        pp, table = conv0.step_tables(
+            enc, EdgeData(*(tile(a) for a in pp_edge_g)), pf)
+        parts = (enc, *(pp or (None,) * 3), table)
+        if outs is None:
+            outs = [None if a is None else a.new_empty((t_count, g)
+                                                       + a.shape[1:])
+                    for a in parts]
+        for out, part in zip(outs, parts):
+            if out is not None:
+                out[t0:t0 + n] = part.reshape((n, g) + part.shape[1:])
+    return SamplingTables(*outs)
 
 
 class ScalarEncoder(nn.Sequential):
@@ -129,7 +202,8 @@ class PharmRecDynamics(nn.Module):
 
     def forward(self, pharm_h_t, pharm_x_t, pharm_mask, prot_h, prot_x,
                 prot_mask, t, pp_edge, pocket_group_size: int = 1,
-                generator: Optional[torch.Generator] = None, pp_out=None):
+                generator: Optional[torch.Generator] = None, pp_out=None,
+                step_tables: Optional[tuple] = None):
         """pharm_h_t [B,F,nf], pharm_x_t [B,F,3], pharm_mask [B,F] bool,
         prot_h [B,P,rec_nf], prot_x [B,P,3], prot_mask [B,P] bool, t [B] in
         [0, 1]. `pp_edge` is the static prot-prot edge (EdgeData, or
@@ -141,7 +215,15 @@ class PharmRecDynamics(nn.Module):
         masks in train mode; eval mode is the JAX `deterministic=True`.
         `pp_out` = (out_eid, out_mask) of `edges.build_pp_out_edges` on the
         group-level pp edge turns the pocket-copy correction on where the
-        JAX package engages it (dynamics.py:361-365)."""
+        JAX package engages it (dynamics.py:361-365).
+
+        `step_tables` is one step's slice of `SamplingTables` (`step(i)`:
+        enc, pp_s, pp_v, pp_cnt, pf_table at pocket-group level, G = B /
+        C): the prot encoder and the first conv's pp chain do not run, and
+        its pf chain gathers the table (JAX dynamics.py:271-291). Eval
+        mode only. When the first conv is the compact one, the prot
+        scalars stay at group level; otherwise they are repeated per
+        copy."""
         b, f = pharm_mask.shape
         p = prot_mask.shape[1]
         c = pocket_group_size
@@ -155,16 +237,35 @@ class PharmRecDynamics(nn.Module):
         pmask = pharm_mask.to(pharm_x_t.dtype)[..., None]
         pharm_scalars = self.pharm_encoder(torch.cat(
             [pharm_h_t, t[:, None, None].expand(b, f, 1)], dim=-1)) * pmask
-        # every consumer of the first conv's prot state reads it
-        # group-folded when that conv is the compact one, so the encoder
-        # runs once per pocket group (JAX dynamics.py:299-312)
-        prot_group = c if (self.dedup_prot_encoder and c > 1
-                           and compact_at == 0) else 1
-        ph, pm, tp = prot_h[::prot_group], prot_mask[::prot_group], \
-            t[::prot_group]
-        prot_scalars = self.prot_encoder(torch.cat(
-            [ph, tp[:, None, None].expand(-1, p, 1)], dim=-1)) \
-            * pm.to(prot_x.dtype)[..., None]
+        pp_pre = pf_table = None
+        if step_tables is not None:
+            if self.training:
+                raise ValueError("step_tables require eval mode")
+            enc_g, pp_s, pp_v, pp_cnt, pf_table = step_tables
+            if enc_g.shape[0] * c != b:
+                raise ValueError(
+                    f"step_tables group axis {enc_g.shape[0]} x "
+                    f"pocket_group_size {c} != batch {b}")
+            if pp_s is not None:
+                pp_pre = (pp_s, pp_v, pp_cnt)
+            # a compact first conv reads every prot input group-folded,
+            # so the [B, P, S] broadcast never happens
+            prot_group = c if compact_at == 0 and pf_table is not None \
+                else 1
+            prot_scalars = enc_g if prot_group > 1 or c == 1 else \
+                torch.repeat_interleave(enc_g, c, dim=0)
+        else:
+            # every consumer of the first conv's prot state reads it
+            # group-folded when that conv is the compact one, so the
+            # encoder runs once per pocket group (JAX dynamics.py:299-312)
+            prot_group = c if (self.dedup_prot_encoder and c > 1
+                               and compact_at == 0) else 1
+            ph, pm, tp = prot_h[::prot_group], prot_mask[::prot_group], \
+                t[::prot_group]
+            prot_scalars = self.prot_encoder(torch.cat(
+                [ph, tp[:, None, None].expand(-1, p, 1)], dim=-1)) \
+                * pm.to(prot_x.dtype)[..., None]
+        pf_group = c if pf_table is not None else prot_group
         # vector channels start at zero (dynamics_gvp.py:156-173)
         v_pharm = pharm_scalars.new_zeros(b, f, self.vector_size, 3)
         v_prot = prot_scalars.new_zeros(prot_scalars.shape[0], p,
@@ -192,12 +293,14 @@ class PharmRecDynamics(nn.Module):
                 # fp update lands
                 pp_src_group_size=c if i == 0 else 1,
                 generator=generator, prot_dst_idx=prot_dst_idx,
-                pf_src_group_size=prot_group if i == 0 else 1,
+                pf_src_group_size=pf_group if i == 0 else 1,
                 prot_feats_group_size=prot_group if i == 0 else 1,
                 emit_clean_prot=corr is not None and i == 0,
                 pp_correction=dict(corr, clean_h=clean[0],
                                    clean_v=clean[1])
-                if corr is not None and i == 1 else None)
+                if corr is not None and i == 1 else None,
+                pp_precomputed=pp_pre if i == 0 else None,
+                pf_table=pf_table if i == 0 else None)
             if corr is not None and i == 0:
                 node_feats, clean = res
             else:

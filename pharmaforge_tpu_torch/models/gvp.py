@@ -12,6 +12,7 @@ draws torch's default init from an explicit generator.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -101,12 +102,42 @@ def gvp_specs(n: int, vector_size: int, scalar_size: int) -> list:
             for _ in range(n)]
 
 
+# (first row, rows of the global batch) while this process holds a slice
+# of a global batch (`batch_rows`); None otherwise
+_BATCH_ROWS: Optional[Tuple[int, int]] = None
+
+
+@contextlib.contextmanager
+def batch_rows(start: int, n_global: int):
+    """Inside the block the tensors hold rows start.. of a global batch of
+    `n_global` rows (data parallelism): `GVPDropout` draws its masks at the
+    global batch shape and keeps those rows, so the masks do not depend on
+    how the batch is split."""
+    global _BATCH_ROWS
+    saved, _BATCH_ROWS = _BATCH_ROWS, (int(start), int(n_global))
+    try:
+        yield
+    finally:
+        _BATCH_ROWS = saved
+
+
+def _rand(shape, generator, device) -> torch.Tensor:
+    """torch.rand of `shape` ([B, ...]), drawn at the global batch shape
+    inside `batch_rows`."""
+    if _BATCH_ROWS is None:
+        return torch.rand(shape, generator=generator, device=device)
+    start, n = _BATCH_ROWS
+    return torch.rand((n,) + tuple(shape[1:]), generator=generator,
+                      device=device)[start:start + shape[0]]
+
+
 class GVPDropout(nn.Module):
     """Scalar dropout plus whole-3-vector dropout (reference
     gvp.py:118-149, JAX gvp.py `gvp_dropout`); the identity in eval mode.
     Both masks are drawn from the explicit `generator` (which must lie on
     the tensors' device): the scalar mask over `feats`, then one keep flag
-    per 3-vector."""
+    per 3-vector. Inside `batch_rows` both are drawn at the global batch
+    shape."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -119,11 +150,10 @@ class GVPDropout(nn.Module):
         if generator is None:
             raise ValueError("GVPDropout in train mode needs a generator")
         keep = 1.0 - self.rate
-        feat_mask = torch.rand(feats.shape, generator=generator,
-                               device=feats.device) < keep
+        feat_mask = _rand(feats.shape, generator, feats.device) < keep
         feats = torch.where(feat_mask, feats / keep, 0.0)
-        vec_mask = torch.rand(vectors.shape[:-1], generator=generator,
-                              device=vectors.device) < keep
+        vec_mask = _rand(vectors.shape[:-1], generator,
+                         vectors.device) < keep
         return feats, vectors * vec_mask[..., None] / keep
 
 

@@ -34,7 +34,6 @@ class RunCheckpointer:
         `every_n_epochs`) are accepted and, as in the JAX package, not
         read: the trainer saves each epoch on 'val total loss'."""
         self.ckpt_dir = Path(run_dir) / "checkpoints"
-        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         self.save_last = save_last
         self.save_top_k = save_top_k
         self.mode = mode
@@ -54,7 +53,9 @@ class RunCheckpointer:
 
     def save(self, state: dict, meta: dict,
              metric: Optional[float] = None) -> None:
-        """Write `last` and update the top-k set."""
+        """Write `last` and update the top-k set. Only this method writes
+        (under data parallelism the trainer calls it on rank 0 alone)."""
+        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         step = int(meta.get("step", 0))
         if self.save_last:
             self._write(self.ckpt_dir / "last", state, meta)

@@ -1,4 +1,5 @@
-"""Metric logging: `<run_dir>/metrics.jsonl` always, wandb when enabled.
+"""Metric logging: `<run_dir>/metrics.jsonl` always, wandb when enabled;
+`NullLogger` for the ranks that do not write.
 
 Port of `pharmaforge_tpu/training/logging.py` (reference train.py:86-124):
 the same metric names and step cadence, and the run id of a new run
@@ -20,6 +21,17 @@ def generate_run_id(length: int = 8) -> str:
     `<name>_<run_id>`)."""
     alphabet = string.ascii_lowercase + string.digits
     return "".join(secrets.choice(alphabet) for _ in range(length))
+
+
+class NullLogger:
+    """The metrics sink of every rank but 0 under data parallelism (JAX
+    trainer.py:34-45): it writes nothing."""
+
+    def log(self, metrics: Dict[str, float], step: int) -> None:
+        pass
+
+    def finish(self) -> None:
+        pass
 
 
 class MetricsLogger:

@@ -7,10 +7,20 @@ back into `SampledPharmacophore` objects that carry their pocket's
 receptor sites for the validity metric. Random draws come from an explicit
 `torch.Generator`. Grouped batches probe the pocket-copy correction's
 `pp_k_out` once per device call (`probe_pp_k_out`).
+
+Inside a process group of N ranks (`parallel/mesh.py`) a device batch is
+split into N contiguous row blocks where each block is whole pocket groups
+or an equal part of one (JAX sampling.py:178-192, 271-281: the copies of
+one pocket, or whole pockets of a stacked sweep), and otherwise runs
+whole on every rank. Every rank draws the chain's noise at the global
+batch shape and keeps its rows, so N ranks sample what one rank samples;
+the rows are gathered back on every rank. As in JAX, the pocket-copy
+correction is off with more than one rank.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from math import ceil
 from typing import List, Optional, Sequence
@@ -27,11 +37,15 @@ from pharmaforge_tpu_torch.data.batch import (
     tile_pocket,
 )
 from pharmaforge_tpu_torch.models.conv import message_norm_is_dynamic
-from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
+from pharmaforge_tpu_torch.models.diffusion import (
+    PharmacophoreDiffusion,
+    draw_chain_noise,
+)
 from pharmaforge_tpu_torch.models.edges import (
     build_pp_edge,
     max_pp_out_degree,
 )
+from pharmaforge_tpu_torch.parallel.mesh import all_gather_object, rank, world
 
 
 def probe_pp_k_out(model: PharmacophoreDiffusion, prot_x_g,
@@ -90,19 +104,56 @@ class PocketSampler:
 
     def _pp_k_out(self, batch, group: int) -> int:
         """`probe_pp_k_out` over the batch's pocket-group representatives;
-        0 for ungrouped batches."""
-        if group <= 1:
+        0 for ungrouped batches and with more than one rank (JAX
+        sampling.py:108-113)."""
+        if group <= 1 or world() > 1:
             return 0
         return probe_pp_k_out(self.model, batch.prot_x[::group],
                               batch.prot_mask[::group])
 
+    @staticmethod
+    def _rank_group(b: int, group: int) -> int:
+        """The pocket group size within each rank's rows of a batch of `b`
+        rows, or 0 where the rows do not split over the ranks: each rank's
+        rows must be whole groups or an equal part of one."""
+        n = world()
+        if n <= 1 or b % n:
+            return 0
+        per = b // n
+        if per % group == 0:
+            return group
+        return per if group % per == 0 else 0
+
     def _run(self, batch, generator, com, group: int,
              visualize: bool = False) -> dict:
-        out = self.model.sample_given_receptor(
-            batch, generator=generator, init_pharm_com=com,
-            visualize_trajectory=visualize, pocket_group_size=group,
-            pp_k_out=self._pp_k_out(batch, group))
-        out = {k: v.cpu().numpy() for k, v in out.items()}
+        b = batch.batch_size
+        local_group = self._rank_group(b, group)
+        if not local_group:
+            out = self.model.sample_given_receptor(
+                batch, generator=generator, init_pharm_com=com,
+                visualize_trajectory=visualize, pocket_group_size=group,
+                pp_k_out=self._pp_k_out(batch, group))
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+        else:
+            # the global batch's draws, this rank's rows of everything
+            per = b // world()
+            rows = slice(rank() * per, (rank() + 1) * per)
+            noise = draw_chain_noise(
+                generator, b, batch.pharm_mask.shape[1],
+                self.model.config.pharm_nf, self.model.config.n_timesteps)
+            noise = {k: v[rows] if v.dim() == 3 else v[:, rows]
+                     for k, v in noise.items()}
+            mine = type(batch)(**{f.name: getattr(batch, f.name)[rows]
+                                  for f in dataclasses.fields(batch)})
+            out = self.model.sample_given_receptor(
+                mine, noise=noise, init_pharm_com=np.asarray(com)[rows],
+                visualize_trajectory=visualize,
+                pocket_group_size=local_group, pp_k_out=0)
+            parts = all_gather_object({k: v.cpu().numpy()
+                                       for k, v in out.items()})
+            out = {k: np.concatenate([p[k] for p in parts],
+                                     axis=1 if k.startswith("traj") else 0)
+                   for k in parts[0]}
         self.last_output = out
         return out
 

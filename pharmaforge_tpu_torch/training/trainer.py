@@ -16,12 +16,17 @@ pharmacodiff.py:245-318), on one device:
   per-step progress line on stderr.
 
 It runs on CUDA unless given another device, and raises without CUDA when
-none is named. The JAX trainer's mesh, multi-host and transient-retry code
-has no counterpart here; `training.steps_per_call` is accepted and the
-steps run one by one (the JAX package documents the numerics as the same).
-All randomness (diffusion noise, dropout, sampling) comes from one
-`torch.Generator` on the device, seeded with `seed` and kept in the
-checkpoint.
+none is named. Inside a process group (`parallel/mesh.py`) it trains data
+parallel with the JAX trainer's rank discipline (trainer.py:34-45,
+151-162, 348-380, 440-475): every rank loads the same global batches and
+keeps its rows, the gradients and validation sums are summed over the
+ranks, and rank 0 alone writes metrics, progress lines and checkpoints;
+the sampling evaluation runs on every rank. The JAX trainer's
+transient-retry code has no counterpart here; `training.steps_per_call`
+is accepted and the steps run one by one (the JAX package documents the
+numerics as the same). All randomness (diffusion noise, dropout,
+sampling) comes from one `torch.Generator` on the device, seeded with
+`seed`, drawn alike on every rank, and kept in the checkpoint.
 """
 
 from __future__ import annotations
@@ -40,8 +45,14 @@ from pharmaforge_tpu_torch.data.batch import bucket_size, pad_batch_to_multiple
 from pharmaforge_tpu_torch.data.datamodule import CrossdockedDataModule
 from pharmaforge_tpu_torch.data.prefetch import prefetch
 from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
+from pharmaforge_tpu_torch.parallel.mesh import (
+    broadcast_module,
+    is_main,
+    local_batch,
+    world,
+)
 from pharmaforge_tpu_torch.training.checkpoints import RunCheckpointer
-from pharmaforge_tpu_torch.training.logging import MetricsLogger
+from pharmaforge_tpu_torch.training.logging import MetricsLogger, NullLogger
 from pharmaforge_tpu_torch.training.optim import Adam, ReduceLROnPlateau
 from pharmaforge_tpu_torch.training.sampling import PocketSampler
 from pharmaforge_tpu_torch.training.train_state import eval_step, train_step
@@ -79,8 +90,11 @@ class Trainer:
             **{k: v for k, v in lrs.get("reducelronplateau", {}).items()
                if k in ("mode", "factor", "patience", "min_lr", "verbose")})
 
-        self.logger = logger or MetricsLogger(self.run_dir,
-                                              config.get("wandb"))
+        # rank 0 owns every file and printed line
+        self.is_main = is_main()
+        self.logger = logger or (
+            MetricsLogger(self.run_dir, config.get("wandb")) if self.is_main
+            else NullLogger())
         self.checkpointer = RunCheckpointer(self.run_dir,
                                             **config.get("checkpointing", {}))
         self.model: Optional[PharmacophoreDiffusion] = None
@@ -105,7 +119,8 @@ class Trainer:
         """Per-step progress line on stderr: in place on a tty, plain
         lines otherwise, every `progress_refresh` steps."""
         r = self.progress_refresh
-        if not r or (batch_idx % r and batch_idx != n_batches - 1):
+        if not self.is_main or not r or (batch_idx % r
+                                         and batch_idx != n_batches - 1):
             return
         loss = metrics.get("train total loss", float("nan"))
         msg = (f"epoch {self.epoch} [{batch_idx + 1}/{n_batches}] "
@@ -127,9 +142,11 @@ class Trainer:
     # ----------------------------------------------------------------- fit
 
     def train_step(self, batch) -> Dict[str, float]:
-        """One optimizer step of `self.model` on a padded batch."""
+        """One optimizer step of `self.model` on a padded global batch
+        (this rank's rows of it in a process group)."""
+        batch, rows = local_batch(batch)
         return train_step(self.model, self.optimizer, batch, self.generator,
-                          self.lr)
+                          self.lr, rows)
 
     def fit(self, model: PharmacophoreDiffusion,
             datamodule: CrossdockedDataModule,
@@ -154,10 +171,14 @@ class Trainer:
             self.lr = meta.get("lr", self.base_lr)
             self.last_sample_marker = meta.get("last_sample_marker", 0.0)
             self.plateau.load_state_dict(meta.get("plateau", {}))
+        # every rank starts from rank 0's weights
+        broadcast_module(model)
 
         n_params = sum(p.numel() for p in model.parameters())
-        print(f"training on {self.device} | {n_params:,} params | batch "
-              f"{self.batch_size} | {self.max_epochs} epochs")
+        if self.is_main:
+            print(f"training on {self.device} | {n_params:,} params | "
+                  f"batch {self.batch_size} | {self.max_epochs} epochs"
+                  + (f" | {world()} ranks" if world() > 1 else ""))
 
         while self.epoch < self.max_epochs:
             loader = datamodule.train_dataloader(seed=self.seed + self.epoch)
@@ -190,10 +211,12 @@ class Trainer:
             self._progress_close()
             secs = time.time() - epoch_t0
             train_loss = np.mean(epoch_metrics.get("train total loss", [0.0]))
-            print(f"epoch {self.epoch}/{self.max_epochs} train total loss "
-                  f"{train_loss:.4f} val total loss "
-                  f"{val_metrics['val total loss']:.4f} "
-                  f"({n_batches / secs if secs > 0 else 0.0:.2f} steps/s)")
+            if self.is_main:
+                print(f"epoch {self.epoch}/{self.max_epochs} train total "
+                      f"loss {train_loss:.4f} val total loss "
+                      f"{val_metrics['val total loss']:.4f} "
+                      f"({n_batches / secs if secs > 0 else 0.0:.2f} "
+                      f"steps/s)")
             self.save_checkpoint(val_metrics["val total loss"])
         return model
 
@@ -225,7 +248,8 @@ class Trainer:
 
     def validate(self, datamodule) -> Dict[str, float]:
         """Validation metrics averaged over the (limited) val loader,
-        weighted by each batch's real size."""
+        weighted by each batch's real size; in a process group each batch's
+        metrics are the global batch's (summed over the ranks)."""
         loader = datamodule.val_dataloader(seed=self.seed)
         n_batches = len(loader)
         limit = self.limit_val_batches
@@ -239,7 +263,9 @@ class Trainer:
             if batch_idx >= n_batches:
                 break
             batch, bs = pad_batch_to_multiple(batch, self.batch_size)
-            for k, v in eval_step(self.model, batch, self.generator).items():
+            batch, rows = local_batch(batch)
+            for k, v in eval_step(self.model, batch, self.generator,
+                                  rows).items():
                 sums[k] = sums.get(k, 0.0) + v * bs
             weights += bs
         return {k: v / max(weights, 1) for k, v in sums.items()}
@@ -275,6 +301,8 @@ class Trainer:
     # ----------------------------------------------------------- checkpoint
 
     def save_checkpoint(self, monitored: float) -> None:
+        if not self.is_main:
+            return
         state = {
             "model": {k: v.detach().cpu()
                       for k, v in self.model.state_dict().items()},
