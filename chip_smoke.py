@@ -11,12 +11,28 @@
 
 Phases, one line each, then a `wall:` line with the phase's seconds; any
 failure raises and the script exits non-zero. They run in the order build,
-knn, golden, main, pp, fullscale, fullwidth, tables, ppbwd, train, dist,
-cli:
+preprocess, knn, golden, main, pp, fullscale, fullwidth, tables, ppbwd,
+train, dist, cli:
 
 1. build     -- compile every CUDA kernel of the sampling and training
                 paths from `pharmaforge_tpu_torch/csrc` (nvcc, sm_90a; one
                 nvcc per source, all started together);
+   preprocess -- before anything initialises CUDA (the preprocessing
+                CLI's pool forks): a CrossDocked-layout raw tree of 3 x 96
+                seeded rigid copies of tests/fixtures/realchem (plus a
+                label-0 row and a missing pair a split) through
+                `python -m pharmaforge_tpu_torch.cli.process_crossdocked`
+                (`main(argv)`, 4 workers, the JAX tests' stand-ins for
+                pharmit, RDKit and the SMARTS sites): its printed counts,
+                6 centres, 54 pocket atoms and 8 sites an example, the
+                first example's coordinates under its motion; the C++
+                packer built and taken, its median times against numpy's;
+                the train CLI fitting the train cell's model for one epoch
+                on the processed set (exactly 1 K1, 2 K2 and 2 K3 launches
+                a step; the first K1, K2 and K3 calls against their plain
+                versions); the test CLI on that run (1 pocket x 4, T=100)
+                with the JAX package's skip line for pocket.pdb; the hinge
+                loss on the card against the CPU;
 2. knn       -- the pf k-NN kernel (K1) against its plain PyTorch
                 versions on the card, through both entries: `knn_select`
                 (idx, dist and xg bit-equal) and `knn_pf_edges` (idx and
@@ -114,9 +130,12 @@ cli:
                 full-scale sampling model, 4 pockets x 30 (B=120): the
                 build at T=1000 (bytes, chunks, peak device memory); the
                 first denoiser call of a fp32 T=1000 chain with tables
-                against the per-step chain at the conv tolerance, and with
-                the tables misordered (`tables_misordered`, a planted
-                fault) outside it; a fp32 T=100 chain with tables within
+                against the per-step chain at the conv tolerance (its
+                outputs and the second conv's state), with the tables
+                misordered (`tables_misordered`, a planted fault) outside
+                it, and built from the pocket groups rolled by one
+                (`tables_rolled`) 10 x outside it, each excess in units of
+                the tolerance; a fp32 T=100 chain with tables within
                 2e-3 of the per-step one; a bf16 T=1000 chain of each path
                 (samples/s of both, exactly 1,000 K1, 3,000 K2 and 1,000
                 correction passes, the final-coordinate deviation
@@ -142,6 +161,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import gzip
 import hashlib
 import json
 import pickle
@@ -1540,20 +1560,29 @@ class FirstCall(Exception):
 
 
 @contextlib.contextmanager
-def first_call(model, kept: list):
+def first_call(model, kept: list, state: list):
     """Inside the block, `model`'s chain stops at its first denoiser call,
-    whose outputs (eps_h, eps_x) go to `kept`."""
+    whose outputs (eps_h, eps_x) go to `kept` and the second conv's output
+    there (prot scalars and vectors, pharm scalars and vectors) to
+    `state`."""
     def hook(mod, args, out):
         kept.append(tuple(o.detach().cpu() for o in out))
         raise FirstCall
 
-    handle = model.dynamics.register_forward_hook(hook)
+    def conv_hook(mod, args, out):
+        state.append(tuple(out[nt][i].detach().cpu()
+                           for nt in ("prot", "pharm") for i in (0, 2)))
+
+    handles = [model.dynamics.register_forward_hook(hook),
+               model.dynamics.noise_predictor.conv_layers[1]
+               .register_forward_hook(conv_hook)]
     try:
         yield
     except FirstCall:
         pass
     finally:
-        handle.remove()
+        for handle in handles:
+            handle.remove()
 
 
 @contextlib.contextmanager
@@ -1565,6 +1594,25 @@ def tables_misordered():
     diffusion.precompute_sampling_tables = \
         lambda dyn, h, m, ed, tv, chunk: real(dyn, h, m, ed, tv.flip(0),
                                               chunk)
+    try:
+        yield
+    finally:
+        diffusion.precompute_sampling_tables = real
+
+
+@contextlib.contextmanager
+def tables_rolled():
+    """A planted fault: the step tables are built from the pocket groups
+    rolled by one, so every copy reads another pocket's tables."""
+    from pharmaforge_tpu_torch.models import diffusion
+    from pharmaforge_tpu_torch.models.edges import EdgeData
+    real = diffusion.precompute_sampling_tables
+
+    def rolled(dyn, h, m, ed, tv, chunk):
+        return real(dyn, h.roll(1, 0), m.roll(1, 0),
+                    EdgeData(*(a.roll(1, 0) for a in ed)), tv, chunk)
+
+    diffusion.precompute_sampling_tables = rolled
     try:
         yield
     finally:
@@ -1591,15 +1639,16 @@ def chain_noise(b: int, steps: int, seed: int = 3) -> dict:
 
 
 def out_err(want, got) -> tuple:
-    """(max |got - want|, max of |got - want| - (atol + rtol |want|)) at
-    the conv tolerance over paired tensors."""
-    err, over = 0.0, -np.inf
+    """(max |got - want|, max of |got - want| / (atol + rtol |want|)) at
+    the conv tolerance over paired tensors: the second is the excess in
+    units of the tolerance, at most 1 within it."""
+    err, units = 0.0, 0.0
     for w, g in zip(want, got):
         d = (g - w).abs()
         err = max(err, float(d.max()))
-        over = max(over, float((d - CONV_TOL["atol"]
-                                - CONV_TOL["rtol"] * w.abs()).max()))
-    return err, over
+        units = max(units, float((d / (CONV_TOL["atol"]
+                                       + CONV_TOL["rtol"] * w.abs())).max()))
+    return err, units
 
 
 def device_kernels(fn) -> tuple:
@@ -1627,9 +1676,12 @@ def phase_tables(dev, n_pockets: int = 4, per_pocket: int = 30,
     * the build alone at T=1000: its bytes (the tensors' bytes equal the
       JAX budget count), chunks and peak device memory;
     * the first denoiser call of a T=1000 chain in fp32, tables against
-      the per-step chain (same weights, batch and noise), at the conv
-      tolerance; with the tables misordered (`tables_misordered`, a
-      planted fault) outside it;
+      the per-step chain (same weights, batch and noise): its outputs and
+      the second conv's state at the conv tolerance; with the tables
+      misordered (`tables_misordered`, a planted fault) its outputs
+      outside it, and with the tables built from the pocket groups rolled
+      by one (`tables_rolled`) the outputs or the state at least 10 x
+      outside it, each excess printed in units of the tolerance;
     * an fp32 chain of `cmp_steps` steps, tables on against off, final
       coordinates within the chain tolerance;
     * a bf16 T=1000 chain of each path through
@@ -1697,27 +1749,41 @@ def phase_tables(dev, n_pockets: int = 4, per_pocket: int = 30,
     # the first denoiser call in fp32, same inputs and noise
     noise = chain_noise(b, off_cfg.n_timesteps)
 
-    def first(on: bool, fault: bool = False):
+    def first(on: bool, fault=contextlib.nullcontext):
         m = PharmacophoreDiffusion(dataclasses.replace(
             off_cfg, compute_dtype="float32", precompute_step_tables=on),
             device=dev)
         m.load_state_dict(state)
-        kept: list = []
-        with tables_misordered() if fault else contextlib.nullcontext(), \
-                first_call(m, kept):
+        kept, conv_state = [], []
+        with fault(), first_call(m, kept, conv_state):
             m.sample_given_receptor(batch, noise=noise, pocket_group_size=c,
                                     pp_k_out=k_out)
-        check(len(kept) == 1, "tables: no first denoiser call kept")
-        return kept[0]
+        check(len(kept) == len(conv_state) == 1,
+              "tables: no first denoiser call kept")
+        return kept[0], conv_state[0]
 
-    want = first(False)
-    step_err, step_over = out_err(want, first(True))
-    check(step_over <= 0, f"tables: the first denoiser call with tables "
-                          f"differs by {step_err:.3e}, beyond {CONV_TOL}")
-    fault_err, fault_over = out_err(want, first(True, fault=True))
-    check(fault_over > 0, f"tables: with the tables misordered the first "
-                          f"call differs by {fault_err:.3e}, within "
-                          f"{CONV_TOL}: the comparison cannot see it")
+    # the outputs of a random-weight model barely see the pocket context,
+    # so the second conv's state is held too (as the fullwidth phase holds
+    # it for the correction)
+    want, want_state = first(False)
+    got, got_state = first(True)
+    step_err, step_units = out_err(want + want_state, got + got_state)
+    check(step_units <= 1, f"tables: the first denoiser call with tables "
+                           f"differs by {step_err:.3e}, beyond {CONV_TOL}")
+    got, got_state = first(True, tables_misordered)
+    fault_err, fault_units = out_err(want, got)
+    check(fault_units > 1, f"tables: with the tables misordered the first "
+                           f"call differs by {fault_err:.3e}, within "
+                           f"{CONV_TOL}: the comparison cannot see it")
+    fault_state = out_err(want_state, got_state)
+    got, got_state = first(True, tables_rolled)
+    roll_out, roll_state = out_err(want, got), out_err(want_state, got_state)
+    roll_units = max(roll_out[1], roll_state[1])
+    check(roll_units >= 10, f"tables: with the pocket groups rolled the "
+                            f"first call's outputs differ by "
+                            f"{roll_out[0]:.3e} and the second conv's state "
+                            f"by {roll_state[0]:.3e}, {roll_units:.3f} x "
+                            f"{CONV_TOL}: below 10 x")
 
     # an fp32 chain of cmp_steps, tables on against off
     short = dataclasses.replace(off_cfg, n_timesteps=cmp_steps,
@@ -1790,8 +1856,14 @@ def phase_tables(dev, n_pockets: int = 4, per_pocket: int = 30,
           f"P={p}, K={k}) in {chunks} chunks of {chunk} steps, "
           f"{build_s:.4f} s, peak device memory {peak}; first denoiser "
           f"call (fp32, T={off_cfg.n_timesteps}) tables vs per-step max|d| "
-          f"{step_err:.3e} (tolerance {CONV_TOL}), planted fault (tables "
-          f"misordered) max|d| {fault_err:.3e}; fp32 T={cmp_steps} chain "
+          f"{step_err:.3e} over the outputs and the second conv's state "
+          f"(tolerance {CONV_TOL}; {step_units:.4f} x it); planted faults, "
+          f"max|d| (x the tolerance): tables misordered outputs "
+          f"{fault_err:.3e} ({fault_units:.4f} x), state "
+          f"{fault_state[0]:.3e} ({fault_state[1]:.4f} x); pocket groups "
+          f"rolled by one outputs {roll_out[0]:.3e} ({roll_out[1]:.4f} x), "
+          f"state {roll_state[0]:.3e} ({roll_state[1]:.4f} x); fp32 "
+          f"T={cmp_steps} chain "
           f"tables on vs off final coords max|dx| {chain_dev:.3e} "
           f"(tolerance {CHAIN_TOL}); {off_cfg.compute_dtype} "
           f"T={on_cfg.n_timesteps} chains samples/s per-step "
@@ -2190,9 +2262,10 @@ def cli_config(tmp: Path) -> dict:
 
 
 @contextlib.contextmanager
-def cli_counters(per_step: list, k_outs: list):
+def cli_counters(per_step: list, k_outs: list, seconds: list | None = None):
     """Inside the block, each optimizer step's launches go to `per_step`
-    (as `count_steps` does, for the trainers a CLI builds) and each
+    (as `count_steps` does, for the trainers a CLI builds), its host wall
+    (the trainer's own step timing) to `seconds` where given, and each
     `pp_k_out` that `PocketSampler` probes to `k_outs`."""
     from pharmaforge_tpu_torch.training.sampling import PocketSampler
     from pharmaforge_tpu_torch.training.trainer import Trainer
@@ -2200,9 +2273,13 @@ def cli_counters(per_step: list, k_outs: list):
 
     def step(self, batch):
         before = read_launches()
+        t0 = time.perf_counter()
         out = real_step(self, batch)
+        wall = time.perf_counter() - t0
         after = read_launches()
         per_step.append({k: after[k] - before[k] for k in after})
+        if seconds is not None:
+            seconds.append(wall)
         return out
 
     def probe(self, batch, group):
@@ -2220,9 +2297,11 @@ def cli_counters(per_step: list, k_outs: list):
 def cli_kernel_calls(calls: dict):
     """Inside the block, the denoiser's first `knn_pf_edges` call and the
     first `fused_message_agg` call of each K2 layout (dtype, shapes,
-    copies) go to `calls`, with copies of their card inputs and outputs,
-    for `check_cli_kernels` to hold against the plain versions after the
-    run. The capture adds no launch."""
+    copies) go to `calls`, with copies of their card inputs (the message
+    chain's weights as they were at the call: a fit moves them) and
+    outputs, for `check_cli_kernels` to hold against the plain versions
+    after the run. The capture adds no launch."""
+    import copy
     from pharmaforge_tpu_torch.models import conv, edges
     real_knn, real_k2 = edges.knn_pf_edges, conv.fused_message_agg
 
@@ -2242,7 +2321,8 @@ def cli_kernel_calls(calls: dict):
                f"copies={kw['copies']}")
         if key not in calls:
             calls[key] = ((keep(pre_s), [keep(v) for v in planes],
-                           type(ed)(*(keep(t) for t in ed)), chain), kw,
+                           type(ed)(*(keep(t) for t in ed)),
+                           copy.deepcopy(chain)), kw,
                           [keep(o) for o in out])
         return out
 
@@ -2530,6 +2610,503 @@ def phase_cli(dev, config_fn=cli_config, samples: tuple = (8, 30)) -> dict:
     return total
 
 
+# ------------------------------------------------------------- preprocess
+
+# the realchem fixture's receptor pharmacophore sites as a SMARTS pass would
+# find them (a copy of tests/test_realchem.py:61-73): eight within 8 A of
+# the bound ligand, two beyond it
+CAPTURED_SITES = {
+    "NegativeIon": [[4.527, 2.617, 1.467], [7.527, 3.117, 1.967]],
+    "PositiveIon": [[8.760, -2.800, 1.900]],
+    "Aromatic": [[-1.940, -8.225, 1.875], [0.540, 4.650, -6.695]],
+    "HydrogenDonor": [[-3.090, -0.100, 2.700], [0.160, 4.150, -9.350]],
+    "HydrogenAcceptor": [[-4.080, 4.430, 1.200], [31.420, 32.430, 30.200]],
+    "Hydrophobic": [[-1.940, -8.225, 1.875]],
+}
+PREP_LIGAND = "aspirin_rec_asp_lig_tt_docked"
+# each example of the fixture: enabled pharmit points, pocket heavy atoms
+# within 8 A of the bound pose, receptor sites within 8 A
+PREP_COUNTS = {"pharm": 6, "prot": 54, "prot_ph": 8}
+PREP_ATOL = 1e-4
+# the PDB's coordinates carry 3 decimals, so a moved receptor's atoms are
+# rounded by up to this much before the pipeline reads them
+PDB_ROUNDING = 5e-4
+# the JAX package's ImportError where Biopython is missing
+# (pharmaforge_tpu/preprocessing/receptor_utils.py:157)
+BIO_MISSING = "biopython is required for pocket PDB writing"
+# replays the ph.json beside the receptor it is given
+PHARMIT_STUB = r"""#!/bin/sh
+rec=""
+out=""
+while [ $# -gt 0 ]; do
+  case "$1" in
+    -receptor) rec="$2"; shift ;;
+    -out) out="$2"; shift ;;
+  esac
+  shift
+done
+cat "$(dirname "$rec")/ph.json" > "$out"
+"""
+
+
+def rigid_motion(rng) -> tuple:
+    """(rotation [3, 3] with det +1, translation [3] within 20 A)."""
+    q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+    q = q * np.sign(np.diag(r))
+    if np.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    return q, rng.uniform(-20.0, 20.0, 3)
+
+
+def moved(xyz, motion) -> np.ndarray:
+    rot, shift = motion
+    return np.asarray(xyz, float) @ rot.T + shift
+
+
+def moved_pdb(text: str, motion) -> str:
+    """A PDB with every ATOM/HETATM record's coordinates moved."""
+    lines = []
+    for ln in text.splitlines():
+        if ln.startswith(("ATOM", "HETATM")):
+            xyz = moved([float(ln[30:38]), float(ln[38:46]),
+                         float(ln[46:54])], motion)
+            ln = ln[:30] + "".join(f"{c:8.3f}" for c in xyz) + ln[54:]
+        lines.append(ln)
+    return "\n".join(lines) + "\n"
+
+
+def moved_sdf(text: str, motion) -> str:
+    """A V2000 SDF with the atom block of every record moved."""
+    records = text.split("$$$$\n")
+    for r, record in enumerate(records):
+        lines = record.split("\n")
+        if len(lines) < 4:
+            continue
+        for i in range(4, 4 + int(lines[3][:3])):
+            ln = lines[i]
+            xyz = moved([float(ln[0:10]), float(ln[10:20]), float(ln[20:30])],
+                        motion)
+            lines[i] = "".join(f"{c:10.4f}" for c in xyz) + ln[30:]
+        records[r] = "\n".join(lines)
+    return "$$$$\n".join(records)
+
+
+def moved_pharmit(text: str, motion) -> str:
+    """A pharmit document with its points (and their direction vectors)
+    moved; what follows the first JSON object is kept as it was."""
+    doc, end = json.JSONDecoder().raw_decode(text)
+    for pt in doc["points"]:
+        pt["x"], pt["y"], pt["z"] = moved([pt["x"], pt["y"], pt["z"]],
+                                          motion).tolist()
+        if "svector" in pt:
+            sv = pt["svector"]
+            sv["x"], sv["y"], sv["z"] = (motion[0] @ [sv["x"], sv["y"],
+                                                      sv["z"]]).tolist()
+    return json.dumps(doc, indent=1) + text[end:]
+
+
+@functools.cache
+def chem_stubs():
+    """`tests/chem_stubs.py` (the JAX tests' RDKit SDF stand-in), loaded
+    from its file as the module `chem_stubs`: another `tests` package on
+    the path cannot shadow it, and the ligands it makes unpickle in this
+    process."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chem_stubs", ROOT / "tests" / "chem_stubs.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["chem_stubs"] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def fixture_sites(rec_path: str) -> dict:
+    """The `get_mol_pharm` stand-in: the pair's moved CAPTURED_SITES,
+    written beside its receptor."""
+    return json.loads((Path(rec_path).parent / "sites.json").read_text())
+
+
+def crossdocked_tree(root: Path, pairs: int, seed: int = 0) -> dict:
+    """A CrossDocked-layout raw tree under `root` from the realchem
+    fixture: per split (3) `pairs` label-1 pairs, each the fixture's
+    receptor, its two-record SDF (decoy first, bound pose second), its
+    ph.json and its receptor sites under one seeded rigid motion, in a
+    directory of its own; each types file also has a label-0 row and a row
+    whose files are missing. Returns {pair directory: motion}."""
+    pdb = (REALCHEM / "aspirin_rec.pdb").read_text()
+    sdf = (REALCHEM / f"{PREP_LIGAND}.sdf").read_text()
+    ph = (REALCHEM / "ph.json").read_text()
+    rng = np.random.default_rng(seed)
+    types = root / "types"
+    types.mkdir(parents=True)
+    motions = {}
+    for split in range(3):
+        rows = []
+        for i in range(pairs):
+            name = f"S{split}P{i:03d}"
+            motions[name] = motion = rigid_motion(rng)
+            pair = root / "CrossDocked2020" / name
+            pair.mkdir(parents=True)
+            (pair / "aspirin_rec.pdb").write_text(moved_pdb(pdb, motion))
+            with gzip.open(pair / f"{PREP_LIGAND}.sdf.gz", "wt") as f:
+                f.write(moved_sdf(sdf, motion))
+            (pair / "ph.json").write_text(moved_pharmit(ph, motion))
+            (pair / "sites.json").write_text(json.dumps(
+                {k: moved(v, motion).tolist()
+                 for k, v in CAPTURED_SITES.items()}))
+            rows.append(f"1 5.42 0.31276 {name}/aspirin_rec_0.gninatypes "
+                        f"{name}/{PREP_LIGAND}_1.gninatypes #min_0.sdf")
+        first = f"S{split}P000"
+        rows.insert(1, f"0 3.10 4.88210 {first}/aspirin_rec_0.gninatypes "
+                       f"{first}/{PREP_LIGAND}_0.gninatypes #min_0.sdf")
+        rows.append("1 5.00 0.30000 GONE/gone_rec_0.gninatypes "
+                    "GONE/gone_lig_0.gninatypes #min_0.sdf")
+        (types / f"it2_tt_v1.3_0_test{split}.types").write_text(
+            "\n".join(rows) + "\n")
+    return motions
+
+
+def fixture_example() -> dict:
+    """The fixture's own example as the pipeline extracts it: pharmit
+    centres, pocket heavy atoms and near receptor sites of the bound
+    pose."""
+    import io
+    import pytest
+    from pharmaforge_tpu_torch.preprocessing import crossdocked
+    sdf = (REALCHEM / f"{PREP_LIGAND}.sdf").read_text()
+    lig = list(chem_stubs().ForwardSDMolSupplier(io.StringIO(sdf)))[1]
+    lig = lig.GetConformer().GetPositions()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(crossdocked, "get_mol_pharm", lambda _: CAPTURED_SITES)
+        sites = crossdocked.receptor_sites_near_ligand(
+            str(REALCHEM / "aspirin_rec.pdb"), lig, 8)[0]
+    return {"pharm": crossdocked.pharmit_points(crossdocked.parse_pharmit_json(
+                (REALCHEM / "ph.json").read_text()))[0],
+            "prot": crossdocked.pocket_heavy_atoms_from_file(
+                str(REALCHEM / "aspirin_rec.pdb"), lig, 8)[0],
+            "prot_ph": sites}
+
+
+def run_process_crossdocked(raw: Path, out: Path, workers: int) -> str:
+    """The port's preprocessing CLI over `raw` into `out` with the
+    stand-ins of the JAX package's tests: a `pharmit` on PATH, the RDKit
+    SDF stand-in (`tests/chem_stubs.py`) and `fixture_sites` for
+    `get_mol_pharm`; the pool's workers fork with them. Returns what the
+    CLI printed."""
+    import io
+    import os
+    import pytest
+    from pharmaforge_tpu_torch.cli import process_crossdocked
+    from pharmaforge_tpu_torch.config.yaml_io import dump_file
+    from pharmaforge_tpu_torch.preprocessing import crossdocked
+    stub_dir = raw.parent / "bin"
+    stub_dir.mkdir()
+    (stub_dir / "pharmit").write_text(PHARMIT_STUB)
+    (stub_dir / "pharmit").chmod(0o755)
+    dump_file({"dataset": {
+        "raw_data_dir": str(raw), "processed_data_dir": str(out),
+        "pocket_cutoff": 8, "min_pharm_centers": 3,
+        "prot_elements": ["C", "N", "O", "S", "P", "F", "Cl", "Br", "I", "B",
+                          "D"]}}, raw.parent / "preprocess.yml")
+    buf = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(buf):
+        chem_stubs().install(mp)
+        mp.setenv("PATH", f"{stub_dir}{os.pathsep}{os.environ['PATH']}")
+        mp.setattr(crossdocked, "get_mol_pharm", fixture_sites)
+        process_crossdocked.main(["--config", str(raw.parent /
+                                                  "preprocess.yml"),
+                                  "--max_workers", str(workers)])
+    return buf.getvalue()
+
+
+def check_processed(out: Path, raw: Path, pairs: int, motions: dict,
+                    printed: str) -> float:
+    """The CLI's four lines per split, each split's arrays and names, and
+    the first example's coordinates against the rigid motion of the
+    fixture's; returns the worst coordinate error beyond the PDB's
+    rounding (pocket atoms) or in all (centres and sites)."""
+    lines = [ln for ln in printed.splitlines()
+             if ln.startswith(("processing types file", "failed to parse",
+                               "processed ")) or " samples in " in ln]
+    want = []
+    for split in range(3):
+        types = str(raw / "types" / f"it2_tt_v1.3_0_test{split}.types")
+        want += [f"processing types file {types}",
+                 f"{pairs + 1} samples in {types}",
+                 "failed to parse 1 ligands and failed to obtain "
+                 "pharmacophore points for 0 examples",
+                 f"processed {pairs} examples"]
+    check(sorted(lines) == sorted(want), f"preprocess: the CLI printed "
+                                         f"{lines}, expected {want}")
+    ref = fixture_example()
+    worst = 0.0
+    for split in range(3):
+        split_dir = out / f"it2_tt_v1.3_0_test{split}"
+        npz = np.load(split_dir / "prot_pharm_tensors.npz")
+        for side, n in PREP_COUNTS.items():
+            spans = npz[f"{side}_idx"]
+            check(spans.shape == (pairs, 2) and bool(
+                (spans[:, 1] - spans[:, 0] == n).all()) and len(
+                npz[f"{side}_pos"]) == pairs * n,
+                f"preprocess: split {split} {side} spans {spans.tolist()}, "
+                f"expected {pairs} of {n}")
+        with gzip.open(split_dir / "prot_file_names.pkl.gz") as f:
+            names = pickle.load(f)
+        check(names == [f"S{split}P{i:03d}/aspirin_rec.pdb"
+                        for i in range(pairs)],
+              f"preprocess: split {split} receptor names {names[:3]}...")
+        if split:
+            continue
+        motion = motions["S0P000"]
+        for side, n in PREP_COUNTS.items():
+            err = float(np.abs(npz[f"{side}_pos"][:n]
+                               - moved(ref[side], motion)).max())
+            slack = PDB_ROUNDING if side == "prot" else 0.0
+            check(err <= PREP_ATOL + slack,
+                  f"preprocess: example 0 {side} coordinates {err:.3e} from "
+                  f"the moved fixture's, beyond {PREP_ATOL} + {slack}")
+            worst = max(worst, err - slack)
+    return worst
+
+
+def packer_times(ds, idx, max_pharm: int, max_prot: int,
+                 calls: int) -> dict:
+    """Median microseconds over `calls` calls of `pack_batch` (the batch's
+    pockets), `pack_batch_gather` (up to `max_pharm` centres of each of
+    its pharmacophores as a gather list) and the dataset's whole
+    `pack_batch`, natively and through the numpy
+    fallback (`PHARMAFORGE_NATIVE=0`), after one warm-up call each; both
+    paths' outputs are checked equal."""
+    import os
+    from pharmaforge_tpu_torch import native
+    n_el, n_ph = len(ds.prot_elements), len(ds.ph_type_map)
+    rows = [np.arange(s, min(e, s + max_pharm))
+            for s, e in ds.pharm_idx[idx]]
+    offsets = np.cumsum([0] + [len(r) for r in rows])
+    gather = np.concatenate(rows)
+    fns = {"pack_batch": lambda: native.pack_batch(
+               ds.prot_pos, ds.prot_feat, ds.prot_idx[idx], max_prot, n_el),
+           "pack_batch_gather": lambda: native.pack_batch_gather(
+               ds.pharm_pos, ds.pharm_feat, gather, offsets, max_pharm, n_ph),
+           "dataset pack_batch": lambda: ds.pack_batch(idx, max_pharm,
+                                                       max_prot)}
+    times, outs = {}, {}
+    before = os.environ.get("PHARMAFORGE_NATIVE")
+    try:
+        for path, flag in (("native", "1"), ("numpy", "0")):
+            os.environ["PHARMAFORGE_NATIVE"] = flag
+            check(native.native_available() == (path == "native"),
+                  f"preprocess: the packer did not take its {path} path")
+            for name, fn in fns.items():
+                outs[name, path] = fn()
+                walls = []
+                for _ in range(calls):
+                    t0 = time.perf_counter()
+                    fn()
+                    walls.append(time.perf_counter() - t0)
+                times[f"{name} {path}"] = float(np.median(walls)) * 1e6
+    finally:
+        if before is None:
+            os.environ.pop("PHARMAFORGE_NATIVE")
+        else:
+            os.environ["PHARMAFORGE_NATIVE"] = before
+    for name in ("pack_batch", "pack_batch_gather"):
+        check(all(np.array_equal(a, b) for a, b in
+                  zip(outs[name, "native"], outs[name, "numpy"])),
+              f"preprocess: native and numpy {name} differ")
+    return times
+
+
+def prep_config(config_fn, processed: Path, raw: Path, runs: Path) -> dict:
+    """`config_fn`'s model as a run config over the processed set: one
+    epoch, splits 0-1 train and 2 validates, no sampling evaluation, the
+    raw receptors under `raw`/CrossDocked2020 for the test CLI."""
+    config = config_fn(str(processed), max_epochs=1)
+    config["training"]["output_dir"] = str(runs)
+    config["training"]["evaluation"]["sample_interval"] = 0
+    config["dataset"].update(raw_data_dir=str(raw / "CrossDocked2020"),
+                             pocket_cutoff=8)
+    config["wandb"]["name"] = "preprocessed"
+    return config
+
+
+def phase_preprocess(dev, pairs: int = 96, workers: int = 4,
+                     config_fn=train_config, sample_steps: int = 100,
+                     samples: int = 4, pack_calls: int = 50,
+                     train_pack=dict(samples_per_split=64,
+                                     n_prot_range=(200, 230))) -> dict:
+    """CrossDocked preprocessing feeding the trainer, in a temporary
+    directory. Runs before anything initialises CUDA: the CLI's pool
+    forks.
+
+    * `crossdocked_tree`: 3 splits x `pairs` moved copies of the realchem
+      fixture, a label-0 row and a missing pair per split;
+    * `python -m pharmaforge_tpu_torch.cli.process_crossdocked` through
+      `main(argv)` with `--max_workers workers` and the JAX tests'
+      stand-ins (`run_process_crossdocked`): its four lines per split,
+      each example 6 centres, 54 pocket atoms and 8 sites, the first
+      example's coordinates the fixture's under its motion
+      (`check_processed`);
+    * the C++ packer: built and taken (no numpy fallback), and its median
+      times against numpy's at the train cell's batch (B=32, 192 slots,
+      `phase_train`'s synthetic recipe) and at this data's (B=32, 64
+      slots), beside the fit's median host wall of a step;
+    * the train CLI fits `config_fn`'s model (the train cell's) for one
+      epoch on the processed set on `dev`: exactly 1 K1, 2 K2 and 2 K3
+      launches in every step; the first K1 call and the first K2 call of
+      each layout (the train steps' and validation's) against their plain
+      versions (`check_cli_kernels`) and K3 on the first train-step K2
+      call's inputs against the plain version in fp64 (`ppbwd_*`);
+    * the test CLI on that run at T=`sample_steps`, one pocket x
+      `samples`: its frames, exactly `expected_launches`, and the JAX
+      package's skip line for pocket.pdb where Biopython is missing;
+    * `distance_hinge_loss` on `dev` against the CPU within 1e-6 relative.
+
+    Returns the fit's launches."""
+    import importlib.util
+    import tempfile
+    from pharmaforge_tpu_torch.cli import test, train
+    from pharmaforge_tpu_torch.config.yaml_io import dump_file, load_file
+    from pharmaforge_tpu_torch.data.dataset import ProteinPharmacophoreDataset
+    from pharmaforge_tpu_torch.data.synthetic import (
+        make_synthetic_processed_dataset)
+    from pharmaforge_tpu_torch.losses import distance_hinge_loss
+    from pharmaforge_tpu_torch.models.diffusion import DiffusionConfig
+    from pharmaforge_tpu_torch import native
+
+    check(not torch.cuda.is_initialized(), "preprocess: CUDA is already "
+                                           "initialised before the pool forks")
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        raw, processed = tmp / "raw", tmp / "processed"
+        t0 = time.perf_counter()
+        motions = crossdocked_tree(raw, pairs)
+        tree_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        printed = run_process_crossdocked(raw, processed, workers)
+        cli_s = time.perf_counter() - t0
+        check(not torch.cuda.is_initialized(),
+              "preprocess: the preprocessing CLI initialised CUDA")
+        coord_err = check_processed(processed, raw, pairs, motions, printed)
+
+        # the packer, natively and in numpy
+        check(native.native_available(), "preprocess: the C++ packer did "
+                                         "not build; the loader would pack "
+                                         "in numpy")
+        config = prep_config(config_fn, processed, raw, tmp / "runs")
+        ds_keys = {k: v for k, v in config["dataset"].items()
+                   if k != "processed_data_dir"}
+        synth = make_synthetic_processed_dataset(
+            str(tmp / "synthetic"), n_splits=1, seed=11, **train_pack)
+        packs = {}
+        for name, data_dir in (("train cell", synth), ("preprocessed",
+                                                       processed)):
+            ds = ProteinPharmacophoreDataset(
+                name=name, split_idxs=[0], processed_data_dir=str(data_dir),
+                graph_cutoffs={}, **ds_keys)
+            batch = config["training"]["batch_size"]
+            sizes = {ds.prot_size(i) for i in range(batch)}
+            slots = max(64, -(-max(sizes) // 64) * 64)
+            packs[f"{name} B={batch} P={slots}"] = packer_times(
+                ds, np.arange(batch), int(ds.subsample_max), slots,
+                pack_calls)
+
+        # the fit on the card
+        dump_file(config, tmp / "run.yml")
+        per_step, k_outs, walls, calls = [], [], [], {}
+        with cli_counters(per_step, k_outs, walls), cli_kernel_calls(calls):
+            run, fit, fit_s, _ = run_cli(
+                train.main, ["--config", tmp / "run.yml", "--seed", "1",
+                             "--device", str(dev)])
+        steps = json.loads((run / "checkpoints" / "last" / "meta.json")
+                           .read_text())["step"]
+        want_steps = -(-2 * pairs // config["training"]["batch_size"])
+        check(steps == want_steps == len(per_step) and all(
+            c == PER_STEP for c in per_step),
+            f"preprocess fit: {steps} steps (expected {want_steps}), "
+            f"launches per step {per_step}")
+        # two K2 layouts: the train steps' (full width) and validation's
+        # (eval mode: the compact prot tail); the first is the train step's
+        errs = check_cli_kernels("preprocess fit", calls, 2)
+        k2_key = next(k for k in calls if k != "knn")
+        args, kw, _ = calls[k2_key]
+        gen = torch.Generator(device=dev).manual_seed(5)
+        b, nd = args[0].shape[0], args[2].mask.shape[1]
+        cot = (torch.randn(b, nd, kw["scalar_size"], generator=gen,
+                           device=dev),
+               torch.randn(b, nd, kw["vector_size"], 3, generator=gen,
+                           device=dev))
+        errs[f"K3 {k2_key}"] = ppbwd_compare(
+            "preprocess fit", ppbwd_grads(args, kw, True, cot),
+            ppbwd_want(args, kw, "float32", cot), "float32")
+
+        # the test CLI on that run
+        saved = load_file(run / "config.yaml")
+        saved["diffusion"]["n_timesteps"] = sample_steps
+        dump_file(saved, run / "config.yaml")
+        k_outs.clear()
+        with cli_counters([], k_outs):
+            out, sampled, test_s, stdout = run_cli(
+                test.main, ["--model_dir", run, "--samples_per_pocket",
+                            samples, "--dataset_size", 1, "--device",
+                            str(dev)])
+        check_frames("preprocess test", out / "pocket_0" / "pharms.xyz",
+                     samples)
+        cfg = DiffusionConfig.from_config(saved)
+        want = expected_launches(cfg, corrected=bool(k_outs)
+                                 and k_outs[0] > 0)
+        check(sampled == want, f"preprocess test: launches {sampled}, "
+                               f"expected {want} (pp_k_out {k_outs})")
+        if importlib.util.find_spec("Bio") is None:
+            skip = f"skipping pocket.pdb/reference files ({BIO_MISSING})"
+            check(skip in stdout.splitlines(),
+                  f"preprocess test: no {skip!r} line: {stdout[-400:]!r}")
+            pocket_files = f"printed {skip!r}"
+        else:
+            check((out / "pocket_0" / "pocket.pdb").is_file(),
+                  "preprocess test: no pocket.pdb")
+            pocket_files = "wrote pocket.pdb and reference_files/"
+
+    # the hinge loss on the card against the CPU
+    rng = np.random.default_rng(9)
+    pa = torch.as_tensor(rng.normal(scale=3.0, size=(40, 3)),
+                         dtype=torch.float32)
+    pb = torch.as_tensor(rng.normal(scale=3.0, size=(30, 3)),
+                         dtype=torch.float32)
+    hinge = []
+    for other in (None, pb):
+        want_h = float(distance_hinge_loss(pa, other, 2.0))
+        got_h = distance_hinge_loss(
+            pa.to(dev), None if other is None else other.to(dev), 2.0)
+        check(got_h.device.type == dev.type, "preprocess: the hinge loss "
+                                             "left its inputs' device")
+        rel = abs(float(got_h) - want_h) / abs(want_h)
+        check(rel <= 1e-6, f"preprocess: hinge loss {float(got_h)!r} on "
+                           f"{dev} vs {want_h!r} on the CPU")
+        hinge.append(rel)
+
+    step_wall = float(np.median(walls[1:])) * 1e6
+    where = card() if dev.type == "cuda" else str(dev)
+    print(f"preprocess: raw tree 3 x {pairs} pairs written in {tree_s:.2f} "
+          f"s; process_crossdocked --max_workers {workers} {cli_s:.2f} s "
+          f"(counts and shapes as expected: {PREP_COUNTS} an example; the "
+          f"first example's coordinates within {coord_err:.3e} of the "
+          f"moved fixture's beyond the PDB's rounding, tolerance "
+          f"{PREP_ATOL}); packer native ({native.library_path().name}); "
+          f"median us over {pack_calls} calls {json.dumps(packs)}; train "
+          f"CLI on {where}: {steps} steps of batch "
+          f"{config['training']['batch_size']} in 1 epoch, {fit_s:.2f} s "
+          f"wall, median host wall of a step {step_wall:.1f} us over the "
+          f"{len(walls) - 1} after the first, launches {fit}, per step "
+          f"{PER_STEP} in every step; first calls vs their plain versions, "
+          f"max abs err {json.dumps(errs)}; test CLI 1 pocket x {samples} "
+          f"at T={sample_steps}: {test_s:.2f} s wall, launches {sampled}, "
+          f"pp_k_out {k_outs}, {pocket_files}; hinge loss {dev} vs CPU "
+          f"relative {hinge[0]:.2e} / {hinge[1]:.2e} (self / pairs)",
+          flush=True)
+    return fit
+
+
 def timed(phase, *args, **kw):
     """`phase(*args, **kw)`, its wall seconds printed after it."""
     t0 = time.perf_counter()
@@ -2554,6 +3131,8 @@ def main() -> int:
         PROFILE_TABLES = Path(sys.argv[sys.argv.index("--profile-only") + 1])
         phase_profile(dev)
         return 0
+    # first: its preprocessing pool forks, before CUDA is initialised
+    prep_launches = timed(phase_preprocess, dev)
     knn = timed(phase_knn, dev)
     timed(phase_golden, dev)
     dev_launches = timed(phase_main, dev, profile)
@@ -2576,8 +3155,10 @@ def main() -> int:
         kern["launches_cli"] = cli_launches[kern["name"]]
         kern["launches_tables_chain"] = tables_launches[kern["name"]]
         kern["launches_dist_rank0"] = dist_launches[kern["name"]]
-        check(kern["launches"] > 0, f"{kern['name']}: not launched by the "
-                                    f"training run")
+        kern["launches_preprocessed_fit"] = prep_launches[kern["name"]]
+        for key in ("launches", "launches_preprocessed_fit"):
+            check(kern[key] > 0, f"{kern['name']}: not launched in "
+                                 f"{key}")
     print(card())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

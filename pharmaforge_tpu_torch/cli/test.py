@@ -8,10 +8,13 @@ samples N pharmacophores for each pocket of the val (or train) split of
 the run's processed dataset and writes, per pocket, `pharms.xyz` (or one
 trajectory file per sample), `sample_time.txt` and `sample_time.pkl`;
 with `--metrics`, validity and its per-type breakdown (`metrics.txt`,
-`metrics.pkl`) and the type histogram (`pharm_counts_*`). Multi-pocket
-sweeps run stacked, several pockets per device batch, the last chunk
-padded with its final pocket; `--pockets_per_call 1` runs pocket by
-pocket. Random draws come from one `torch.Generator` on `--device` (CUDA
+`metrics.pkl`) and the type histogram (`pharm_counts_*`). Where a
+pocket's raw receptor file exists, `pocket.pdb` and `reference_files/`
+(the receptor and the ligand) are written too; without Biopython or
+RDKit a `skipping pocket.pdb/reference files (...)` line says why.
+Multi-pocket sweeps run stacked, several pockets per device batch, the
+last chunk padded with its final pocket; `--pockets_per_call 1` runs
+pocket by pocket. Random draws come from one `torch.Generator` on `--device` (CUDA
 by default; without CUDA it raises unless given `--device cpu`), seeded
 with `--seed`; pharmacophore sizes from the numpy-seeded size
 distribution, as in the JAX CLI. `--n_devices N` (above 1) starts N
@@ -23,6 +26,7 @@ local ranks (`parallel/mesh.py`), rank r on cuda:r or all on the CPU with
 from __future__ import annotations
 
 import pickle
+import shutil
 import time
 from pathlib import Path
 from typing import List, Optional, Sequence
@@ -45,15 +49,15 @@ from pharmaforge_tpu_torch.parallel.mesh import (
     is_main,
     spawn_local,
 )
+from pharmaforge_tpu_torch.preprocessing.receptor_utils import (
+    write_pocket_file,
+)
 from pharmaforge_tpu_torch.training.restore import load_model, resolve_run_dir
 from pharmaforge_tpu_torch.training.sampling import PocketSampler
 from pharmaforge_tpu_torch.utils.misc import (
     MATMUL_PRECISIONS,
     matmul_precision,
 )
-
-POCKET_FILES = "ROADMAP A.6 (preprocessing/receptor_utils.py)"
-
 
 def parse_arguments(argv: Optional[Sequence[str]] = None):
     p = ArgumentParser(prog="pharmaforge_tpu_torch.cli.test")
@@ -201,13 +205,27 @@ def _run(args, device: torch.device) -> Path:
         print(f'Pocket {dataset_idx} sampling time per pharmacophore: '
               f'{pocket_sample_time / len(sampled_pharms):.2f} seconds')
 
-        raw_data_dir, ref_prot_file, _ = test_dataset.get_files(dataset_idx)
+        raw_data_dir, ref_prot_file, ref_lig_rdmol = \
+            test_dataset.get_files(dataset_idx)
         # pocket.pdb and the reference files need the raw CrossDocked
-        # files and a port of receptor_utils.py
+        # files, RDKit and Biopython; without the toolkits a line says so
         if ref_prot_file is not None and raw_data_dir:
-            if (Path(raw_data_dir) / ref_prot_file).exists():
-                print(f'skipping pocket.pdb/reference files (not ported: '
-                      f'{POCKET_FILES})')
+            ref_path = Path(raw_data_dir) / ref_prot_file
+            if ref_path.exists():
+                try:
+                    write_pocket_file(ref_path, ref_lig_rdmol,
+                                      pocket_dir / 'pocket.pdb',
+                                      cutoff=config['dataset']['pocket_cutoff'])
+                    ref_files_dir = pocket_dir / 'reference_files'
+                    ref_files_dir.mkdir(exist_ok=True)
+                    shutil.copy(ref_path, ref_files_dir / ref_path.name)
+                    if ref_lig_rdmol is not None:
+                        from rdkit import Chem
+                        w = Chem.SDWriter(str(ref_files_dir / 'ligand.sdf'))
+                        w.write(ref_lig_rdmol, confId=0)
+                        w.close()
+                except ImportError as e:
+                    print(f'skipping pocket.pdb/reference files ({e})')
 
         if args.visualize_trajectory:
             for pharm_idx, sampled_pharm in enumerate(sampled_pharms):

@@ -1,20 +1,21 @@
 """Processed-tensor dataset and its size-bucketed loader.
 
 Port of `pharmaforge_tpu/data/dataset.py`. A processed dataset (the
-reference's format, process_crossdocked.py:173-263) is a directory of
-split directories, each holding `prot_pharm_tensors.npz` (flat arrays
-`pharm_pos`, `pharm_feat`, `prot_pos`, `prot_feat`, `prot_ph_pos`,
-`prot_ph_feat` with `[start, end)` index arrays `pharm_idx` / `prot_idx` /
-`prot_ph_idx`), `prot_file_names.pkl.gz` (each sample's receptor file,
-which the test CLI reads through `get_files`) and `lig_rdmol.pkl.gz` (its
-RDKit ligand, not read: nothing in the port writes the reference files
-yet). Split directory names end in the split index. Samples are numpy
-dicts; the loader packs padded `PharmComplexBatch`es grouped by
-protein-size bucket.
+reference's format, process_crossdocked.py:173-263, which
+`cli/process_crossdocked.py` writes) is a directory of split directories,
+each holding `prot_pharm_tensors.npz` (flat arrays `pharm_pos`,
+`pharm_feat`, `prot_pos`, `prot_feat`, `prot_ph_pos`, `prot_ph_feat` with
+`[start, end)` index arrays `pharm_idx` / `prot_idx` / `prot_ph_idx`),
+`prot_file_names.pkl.gz` (each sample's receptor file) and
+`lig_rdmol.pkl.gz` (its RDKit ligand, loaded where it unpickles, that is
+where RDKit is importable, and None otherwise: only the test CLI's
+reference files need it). `get_files` hands both to the test CLI. Split
+directory names end in the split index. Samples are numpy dicts; the
+loader packs padded `PharmComplexBatch`es grouped by protein-size bucket.
 
-The JAX package packs batches with its C++ packer; here `pack_batch`
-packs them in numpy, with the same values and the same random draws for
-the pharmacophore subsampling.
+`pack_batch` packs a batch through the C++ packer (`native`, numpy where
+it is not built), with the same values as collating `__getitem__`
+samples and the same random draws for the pharmacophore subsampling.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
+from pharmaforge_tpu_torch import native
 from pharmaforge_tpu_torch.data.batch import (
     PharmComplexBatch,
     bucket_size,
@@ -64,6 +66,7 @@ class ProteinPharmacophoreDataset:
             if Path(fixed).exists():
                 self.raw_data_dir = fixed
         self.prot_file_names: List[str] = []
+        self.lig_rdmol_objects: List[object] = []
 
         keys = ("pharm_pos", "pharm_feat", "prot_pos", "prot_feat",
                 "prot_ph_pos", "prot_ph_feat")
@@ -84,6 +87,9 @@ class ProteinPharmacophoreDataset:
                 with gzip.open(names_file, "rb") as f:
                     self.prot_file_names.extend(pickle.load(f))
             data = np.load(split_dir / "prot_pharm_tensors.npz")
+            self.lig_rdmol_objects.extend(
+                _ligands(split_dir / "lig_rdmol.pkl.gz",
+                         len(data["prot_idx"])))
             for k in keys:
                 cols[k].append(data[k])
             for side in spans:
@@ -94,9 +100,10 @@ class ProteinPharmacophoreDataset:
                                     f"{split_idxs} under "
                                     f"{self.processed_data_dir}")
         self.pharm_pos = np.concatenate(cols["pharm_pos"]).astype(np.float32)
-        self.pharm_feat = np.concatenate(cols["pharm_feat"])
+        self.pharm_feat = np.concatenate(cols["pharm_feat"]).astype(
+            np.int32)
         self.prot_pos = np.concatenate(cols["prot_pos"]).astype(np.float32)
-        self.prot_feat = np.concatenate(cols["prot_feat"])
+        self.prot_feat = np.concatenate(cols["prot_feat"]).astype(np.int32)
         self.prot_ph_pos = np.concatenate(cols["prot_ph_pos"]).astype(
             np.float32)
         self.prot_ph_feat = np.concatenate(cols["prot_ph_feat"])
@@ -144,42 +151,55 @@ class ProteinPharmacophoreDataset:
     def pack_batch(self, indices, max_pharm: int, max_prot: int
                    ) -> PharmComplexBatch:
         """A padded batch straight from the flat arrays: rows sliced,
-        one-hot encoded and zero-padded to `max_pharm` / `max_prot`
-        slots, pharmacophores subsampled row by row."""
+        one-hot encoded and zero-padded to `max_pharm` / `max_prot` slots
+        by the C++ packer, pharmacophores subsampled row by row (as
+        `pharmaforge_tpu/data/dataset.py::pack_batch`)."""
         indices = np.asarray(indices)
-        b = len(indices)
         n_ph, n_el = len(self.ph_type_map), len(self.prot_elements)
-        out = {"pharm_x": np.zeros((b, max_pharm, 3), np.float32),
-               "pharm_h": np.zeros((b, max_pharm, n_ph), np.float32),
-               "pharm_mask": np.zeros((b, max_pharm), bool),
-               "prot_x": np.zeros((b, max_prot, 3), np.float32),
-               "prot_h": np.zeros((b, max_prot, n_el), np.float32),
-               "prot_mask": np.zeros((b, max_prot), bool)}
-        for row, i in enumerate(indices):
-            rs, re = self.prot_idx[i]
-            n = re - rs
-            out["prot_x"][row, :n] = self.prot_pos[rs:re]
-            out["prot_h"][row, np.arange(n), self.prot_feat[rs:re]] = 1.0
-            out["prot_mask"][row, :n] = True
-        for row, i in enumerate(indices):
-            ps, pe = self.pharm_idx[i]
-            sel = self._subsample(int(pe - ps))
-            rows = np.arange(ps, pe) if sel is None else ps + sel
-            n = len(rows)
-            out["pharm_x"][row, :n] = self.pharm_pos[rows]
-            out["pharm_h"][row, np.arange(n), self.pharm_feat[rows]] = 1.0
-            out["pharm_mask"][row, :n] = True
-        return PharmComplexBatch(**out)
+        prot_x, prot_h, prot_mask = native.pack_batch(
+            self.prot_pos, self.prot_feat, self.prot_idx[indices], max_prot,
+            n_el)
+        pharm_spans = self.pharm_idx[indices]
+        if self.subsample_pharms:
+            rows = []
+            for s, e in pharm_spans:
+                sel = self._subsample(int(e - s))
+                rows.append(np.arange(s, e) if sel is None else s + sel)
+            offsets = np.cumsum([0] + [len(r) for r in rows])
+            pharm_x, pharm_h, pharm_mask = native.pack_batch_gather(
+                self.pharm_pos, self.pharm_feat, np.concatenate(rows),
+                offsets, max_pharm, n_ph)
+        else:
+            pharm_x, pharm_h, pharm_mask = native.pack_batch(
+                self.pharm_pos, self.pharm_feat, pharm_spans, max_pharm,
+                n_ph)
+        return PharmComplexBatch(
+            pharm_x=pharm_x, pharm_h=pharm_h, pharm_mask=pharm_mask,
+            prot_x=prot_x, prot_h=prot_h, prot_mask=prot_mask)
 
     def get_files(self, idx: int):
-        """(raw data dir, receptor file name, ligand) of sample `idx`
-        (reference protein_pharm_dataset.py:201-207). The ligand is None:
-        its RDKit molecule is read once the reference files are written
-        (ROADMAP A.6). The name is None where the processed set does not
-        record it."""
+        """(raw data dir, receptor file name, RDKit ligand) of sample `idx`
+        (reference protein_pharm_dataset.py:201-207); the name or the
+        ligand is None where the processed set does not hold it or it did
+        not unpickle."""
         name = (self.prot_file_names[idx]
                 if idx < len(self.prot_file_names) else None)
-        return self.raw_data_dir, name, None
+        lig = (self.lig_rdmol_objects[idx]
+               if idx < len(self.lig_rdmol_objects) else None)
+        return self.raw_data_dir, name, lig
+
+
+def _ligands(path: Path, n: int) -> list:
+    """The `n` ligands of one split's `lig_rdmol.pkl.gz`, or `n` Nones
+    where it is missing or does not unpickle (no RDKit to rebuild its
+    molecules)."""
+    if path.exists():
+        try:
+            with gzip.open(path, "rb") as f:
+                return list(pickle.load(f))
+        except (ImportError, AttributeError, pickle.UnpicklingError):
+            pass
+    return [None] * n
 
 
 def get_dataloader(dataset: ProteinPharmacophoreDataset, batch_size: int,

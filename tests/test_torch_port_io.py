@@ -622,7 +622,12 @@ def test_every_port_module_imports_without_jax_yaml_or_the_jax_package():
             "pharmaforge_tpu_torch.training.restore",
             "pharmaforge_tpu_torch.utils.misc",
             "pharmaforge_tpu_torch.utils.timing",
-            "pharmaforge_tpu_torch.utils.relative_paths"} <= expected
+            "pharmaforge_tpu_torch.utils.relative_paths",
+            "pharmaforge_tpu_torch.preprocessing.crossdocked",
+            "pharmaforge_tpu_torch.preprocessing.receptor_utils",
+            "pharmaforge_tpu_torch.cli.process_crossdocked",
+            "pharmaforge_tpu_torch.native",
+            "pharmaforge_tpu_torch.losses.dist_hinge_loss"} <= expected
     out = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
