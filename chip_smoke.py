@@ -11,8 +11,19 @@
 
 Phases, one line each, then a `wall:` line with the phase's seconds; any
 failure raises and the script exits non-zero. They run in the order build,
-preprocess, knn, golden, main, pp, fullscale, fullwidth, tables, ppbwd,
-train, dist, cli:
+preprocess, knn, golden, graphs, main, pp, fullscale, fullwidth, tables,
+ppbwd, train, dist, cli, bench.
+
+Every sampling chain on the card runs as CUDA graph replays
+(`models/diffusion.py::ChainGraphs`: a warm-up step, U =
+`sample_scan_unroll` steps captured in one graph and the T mod U left in
+another, the graphs kept for the next chain of the same signature). The
+kernels' wrappers count a launch where it is made or captured; a chain's
+launches are its graphs' replayed launches (`read_replayed`: each graph's
+captured launches x its replays), which the phases hold to exactly
+`expected_launches`, with the replays counted (`chain_replays`) and, for a
+call on kept graphs, nothing launched outside them. Checks that copy a
+step's state to the host drive the eager step loop (`eager_chain`).
 
 1. build     -- compile every CUDA kernel of the sampling and training
                 paths from `pharmaforge_tpu_torch/csrc` (nvcc, sm_90a; one
@@ -45,8 +56,20 @@ train, dist, cli:
                 it replaces (also eagerly), of an empty kernel (the launch
                 floor), of the plain version and of `torch.topk`;
 3. golden    -- the frozen chains `tests/golden/trajectory_{radius,knn}.npz`
-                on the card within 2e-3, the knn chain through K1 exactly T
-                times;
+                on the card within 2e-3, each in T graph replays, the knn
+                chain through K1 exactly T times;
+   graphs    -- the captured chain against the eager step loop with the
+                same injected noise, within 2e-3: the dev model in fp32
+                (T=100, B=240), the full-scale model in bf16 (T=1000,
+                B=120, the correction on) and that model with the step
+                tables; U in {4, 7} against U=1 (7 leaves a tail graph);
+                the planted fault `step_index_frozen` at least 10 x the
+                tolerance away; exact replayed counts and replays of every
+                call; capture time, graph pool bytes and the per-call
+                overhead of kept graphs; samples/s in alternating turns:
+                eager against captured (dev; full scale with the step
+                tables captured too), then the compact tail against full
+                width, captured (`phase_graphs`);
 4. main      -- the dev model at full width (n_convs=2, 128 scalars, 16
                 vectors, T=100, fp32, random weights from a seed) sampling
                 8 synthetic 230-atom pockets x 30 samples through
@@ -148,7 +171,11 @@ train, dist, cli:
                 exactly 1 K1, 2 K2 and 2 K3 launches a step, weights
                 within the fp32 train-step tolerance of the no-group run's
                 (NCCL bit-equality printed), rank 0 alone writing, the
-                samples within 2e-3.
+                samples within 2e-3, each rank's chain in its own graphs'
+                T replays;
+12. bench    -- `python -m pharmaforge_tpu_torch.bench --repeats 2` in
+                this process (`bench.main`): its JSON line printed, every
+                key of BENCH_KEYS, rates positive, MFU at most 1.
 
 Then the card's name and power limit, the `kernels` JSON line, and the
 final `{"ok": true, ...}` line. Without CUDA it exits 1 and prints no
@@ -522,7 +549,6 @@ def golden_config(**overrides):
 def phase_golden(dev) -> None:
     from pharmaforge_tpu_torch.data.batch import PharmComplexBatch
     from pharmaforge_tpu_torch.interop import load_reference_state_dict
-    from pharmaforge_tpu_torch.ops import knn_select as ks
     report = []
     for name in ("radius", "knn"):
         data = np.load(ROOT / "tests" / "golden" / f"trajectory_{name}.npz")
@@ -544,15 +570,18 @@ def phase_golden(dev) -> None:
             pharm_mask, prot_x, prot_h, prot_mask)
         noise = {"x_T": data["noise_x_T"], "h_T": data["noise_h_T"],
                  "pos": data["noise_pos"], "feat": data["noise_feat"]}
-        before = ks.launches
+        reset_launches()
         out = model.sample_given_receptor(
             batch, init_pharm_com=np.broadcast_to(data["init_com"], (b, 3)),
             visualize_trajectory=True, noise=noise)
         out = {k: v.cpu().numpy() for k, v in out.items()}
-        launched = ks.launches - before
+        launched = read_replayed()["knn_select"]
         want = cfg.n_timesteps if cfg.pf_k else 0
-        check(launched == want, f"golden {name}: {launched} knn_select "
-                                f"launches, expected {want}")
+        check(launched == want and replay_counts()[0]
+              == chain_replays(cfg),
+              f"golden {name}: {launched} knn_select launches in "
+              f"{replay_counts()[0]} graph replays, expected {want} in "
+              f"{chain_replays(cfg)}")
         dev_max = 0.0
         for i, m in enumerate(sizes):
             # the port logs the initial frame first
@@ -567,7 +596,8 @@ def phase_golden(dev) -> None:
         check(dev_max < CHAIN_TOL, f"golden {name}: max deviation "
                                    f"{dev_max:.3e} >= {CHAIN_TOL}")
         report.append(f"{name} max|dev| {dev_max:.3e}, "
-                      f"{launched} knn launches")
+                      f"{launched} knn launches in "
+                      f"{replay_counts()[0]} graph replays")
     print(f"golden: {'; '.join(report)} (tolerance {CHAIN_TOL})",
           flush=True)
 
@@ -612,22 +642,50 @@ def kernel_counters():
 
 
 def reset_launches() -> None:
-    """Every kernel launch count and the correction-pass count to 0."""
-    from pharmaforge_tpu_torch.models import conv
+    """Every kernel launch count, the correction-pass count and the chain
+    graphs' replay counts to 0."""
+    from pharmaforge_tpu_torch.models import conv, diffusion
     for mod, attr in kernel_counters().values():
         setattr(mod, attr, 0)
     conv.corrections = 0
+    diffusion.graph_replays = 0
+    for key in diffusion.replayed_launches:
+        diffusion.replayed_launches[key] = 0
 
 
 def read_launches() -> dict:
+    """The wrappers' counts: launches made eagerly, and launches captured
+    into a chain graph (counted once, where captured)."""
     return {name: getattr(mod, attr)
             for name, (mod, attr) in kernel_counters().items()}
+
+
+def read_replayed() -> dict:
+    """The launches that chain graphs' replays ran: each graph's captured
+    launches x its replays, per kernel."""
+    from pharmaforge_tpu_torch.models import diffusion
+    return {name: diffusion.replayed_launches[name] for name in KERNELS}
+
+
+def replay_counts() -> tuple:
+    """(graph replays, correction passes those replays ran)."""
+    from pharmaforge_tpu_torch.models import diffusion
+    return (diffusion.graph_replays,
+            diffusion.replayed_launches["corrections"])
+
+
+def chain_replays(cfg) -> int:
+    """Graph replays of one chain of `cfg`: T // U, and one more for the
+    T mod U steps left (U = max(1, sample_scan_unroll), at most T)."""
+    u = min(max(1, cfg.sample_scan_unroll), cfg.n_timesteps)
+    return cfg.n_timesteps // u + int(cfg.n_timesteps % u > 0)
 
 
 def expected_launches(cfg, corrected: bool = False) -> dict:
     """One chain of `cfg`: K1 once per denoiser call (knn pf), K2 once per
     middle conv (convs 1 .. n-2) per call, and once more where the second
-    conv runs the pocket-copy correction (a clean and a dirty pass)."""
+    conv runs the pocket-copy correction (a clean and a dirty pass). On
+    the card a chain's launches are its graphs' (`read_replayed`)."""
     t = cfg.n_timesteps
     return {"knn_select": t if cfg.pf_k else 0,
             "pp_message": t * (max(cfg.n_convs - 2, 0) + int(corrected))
@@ -647,31 +705,57 @@ def stacked_k_out(model, pockets, atoms: int) -> int:
     return probe_pp_k_out(model, px, pm)
 
 
+def eager_chain(model, batch, **kw) -> dict:
+    """`model`'s chain driven step by step through `chain_step` in a
+    Python loop (`sample_given_receptor`'s keywords): the chain without
+    graphs, which no entry point runs on the card. Forward hooks that copy
+    to the host see every step here; in a captured chain they would run
+    once, at capture."""
+    chain = model.chain_setup(batch, **kw)
+    for _ in range(chain.n_steps):
+        model.chain_step(chain)
+    return model.chain_result(chain)
+
+
 def chain_on(model, cfg, batch, noise, dev=None,
-             capture: list | None = None) -> tuple:
+             capture: list | None = None, eager: bool = False) -> tuple:
     """The injected-noise chain of `model`'s weights under `cfg` for the
     one-pocket `batch`, on `dev` (the model's device by default), grouped
-    with the probed `pp_k_out`: (final pharm_x, launch counts, correction
-    passes, k_out). `capture` collects the second conv's prot output
-    (scalars, vectors) of every step: the state the pocket-copy
-    correction writes."""
-    from pharmaforge_tpu_torch.models import conv
+    with the probed `pp_k_out`: (final pharm_x, the chain's launch counts
+    and correction passes, k_out); on the card the chain runs captured,
+    and its counts are its graphs' replayed launches. `capture` collects
+    the second conv's prot output (scalars, vectors) of every step (the
+    state the pocket-copy correction writes) from the eager step loop of
+    the same chain, whose final coordinates must agree with the captured
+    chain's within the chain tolerance. `eager` runs the eager step loop
+    alone (for a planted fault whose code reads values on the host, which
+    no capture allows); its counts are then the wrappers'."""
     from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
     from pharmaforge_tpu_torch.training.sampling import probe_pp_k_out
     m = PharmacophoreDiffusion(cfg, device=dev or model.device)
     m.load_state_dict(model.state_dict())
-    if capture is not None:
-        m.dynamics.noise_predictor.conv_layers[1].register_forward_hook(
-            lambda mod, args, out: capture.append(
-                (out["prot"][0].cpu(), out["prot"][2].cpu())))
     k_out = probe_pp_k_out(m, batch.prot_x[:1], batch.prot_mask[:1])
+    kw = dict(noise=noise, pocket_group_size=batch.batch_size,
+              pp_k_out=k_out)
     reset_launches()
-    out = m.sample_given_receptor(batch, noise=noise,
-                                  pocket_group_size=batch.batch_size,
-                                  pp_k_out=k_out)
-    if m.device.type == "cuda":
-        torch.cuda.synchronize()
-    return out["pharm_x"].cpu(), read_launches(), conv.corrections, k_out
+    out = launched = corr = None
+    if not eager:
+        out = m.sample_given_receptor(batch, **kw)["pharm_x"].cpu()
+        replays, corr = replay_counts()
+        launched = read_replayed() if replays else read_launches()
+    if capture is not None or eager:
+        handle = m.dynamics.noise_predictor.conv_layers[1] \
+            .register_forward_hook(lambda mod, args, o: capture.append(
+                (o["prot"][0].cpu(), o["prot"][2].cpu()))
+                if capture is not None else None)
+        stepped = eager_chain(m, batch, **kw)["pharm_x"].cpu()
+        handle.remove()
+        if eager:
+            return stepped, read_launches(), 0, k_out
+        gap = float((stepped - out).abs().max())
+        check(gap < CHAIN_TOL, f"chain_on: the eager step loop differs "
+                               f"from the captured chain by {gap:.3e}")
+    return out, launched, corr, k_out
 
 
 def conv_state_err(want: list, got: list) -> tuple:
@@ -717,17 +801,18 @@ def phase_sampling(name: str, dev, cfg, n_pockets: int, per_pocket: int,
                    atoms: int, timed: int, cmp_steps: int,
                    profile: bool = False, other=None,
                    keep: dict | None = None) -> dict:
-    """Drive `cfg` through `PocketSampler.sample_stacked`: a warm-up chain,
-    then `timed` chains with every launch count set to 0 just before and
-    read just after; then the same weights in fp32 over `cmp_steps` steps,
+    """Drive `cfg` through `PocketSampler.sample_stacked`: a warm-up chain
+    (it captures the chain's graphs), then `timed` chains with every
+    launch count set to 0 just before and read just after: each chain
+    exactly its graph replays, with `expected_launches` replayed and no
+    launch made or captured outside them (the graphs reused); then the same weights in fp32 over `cmp_steps` steps,
     1 pocket x 8, on the card and on the CPU with the same injected noise.
     `other` (DiffusionConfig overrides: the other sampling path) also
     holds that fp32 chain against the other path's on the card and prints
     the two paths' bf16 difference. `keep` gets the samples/s of the timed
     chains ('rates') and the centres of the first ('pharm_x', generator
-    seed 2). Returns the launch counts of one timed chain."""
+    seed 2). Returns the launch counts of one timed chain (replayed)."""
     from pharmaforge_tpu_torch.data.batch import tile_pocket
-    from pharmaforge_tpu_torch.models import conv
     from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
     from pharmaforge_tpu_torch.training.sampling import PocketSampler
 
@@ -753,11 +838,15 @@ def phase_sampling(name: str, dev, cfg, n_pockets: int, per_pocket: int,
         res = sampler.sample_stacked(pockets, n_pharms, gen)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = read_launches()
-        check(launches == want, f"{name}: launches per chain {launches}, "
-                                f"expected {want}")
-        check(conv.corrections == want_corr,
-              f"{name}: {conv.corrections} correction passes per chain, "
+        launches, outside = read_replayed(), read_launches()
+        replays, corr = replay_counts()
+        check(launches == want and replays == chain_replays(cfg)
+              and not any(outside.values()),
+              f"{name}: launches per chain {launches} in {replays} graph "
+              f"replays and {outside} outside them, expected {want} in "
+              f"{chain_replays(cfg)} and none outside")
+        check(corr == want_corr,
+              f"{name}: {corr} correction passes per chain, "
               f"expected {want_corr}")
         rates.append(n_pockets * per_pocket / dt)
         if rep == 0 and keep is not None:
@@ -821,8 +910,9 @@ def phase_sampling(name: str, dev, cfg, n_pockets: int, per_pocket: int,
         # the check must see a broken correction: the other path with the
         # correction's scatter dropped falls outside the conv tolerance
         with correction_dropped(deltas):
+            # eager: the fault reads each pass's change on the host
             fault = chain_on(model, dataclasses.replace(cmp_cfg, **other),
-                             batch, noise, capture=faulty)
+                             batch, noise, capture=faulty, eager=True)
         fault_err, fault_over = conv_state_err(mine, faulty)
         fault_dev = float((on_card - fault[0]).abs().max())
         check(bool(deltas) and fault_over > 0,
@@ -849,7 +939,9 @@ def phase_sampling(name: str, dev, cfg, n_pockets: int, per_pocket: int,
           f"n_convs={cfg.n_convs} {cfg.compute_dtype} compact tail "
           f"{cfg.compact_prot_tail} k_out {k_out} on {card()}: samples/s "
           f"{' '.join(f'{r:.2f}' for r in rates)}; launches per chain "
-          f"{launches}, correction passes {want_corr}; card vs CPU (fp32, "
+          f"{launches} in {chain_replays(cfg)} graph replays (launches per "
+          f"capture x replays; none outside), correction passes "
+          f"{want_corr}; card vs CPU (fp32, "
           f"T={cmp_steps}, B={b}, k_out {cmp_k}) max|dx| {cpu_dev:.3e} "
           f"(tolerance {CHAIN_TOL}){versus}", flush=True)
 
@@ -1088,39 +1180,6 @@ def correction_case(dev, ed, prot_x, prot_mask, copies: int) -> tuple:
     return edge, corr["slots"].shape[1]
 
 
-def pp_bound(args, kw) -> tuple:
-    """(bytes, operations, edge rows) of one K2 wrapper call, counting what
-    this call's data needs: the tables and the weights read once, idx and
-    mask of every group-level slot, x_dir and d_rbf of the slots whose
-    mask is set (a masked slot's geometry is never used), and the fp32
-    outputs written once; two operations per multiply-add of the edge
-    terms over the valid group-level slots and of the chain over the valid
-    edge rows."""
-    from pharmaforge_tpu_torch.ops import pp_message as ppm
-    pre_s, planes, edge, chain = args
-    s, v, copies = kw["scalar_size"], kw["vector_size"], kw["copies"]
-    r = kw["rbf_dim"]
-    b, p, _ = pre_s.shape
-    g, nd, k = edge.mask.shape
-    h0 = planes[0].shape[-1]
-    w = ppm.split_weights(chain, s, r)
-    hj = w[7].shape[1]
-    n_j = (len(w) - 7) // 7
-    valid = int(edge.mask.sum())
-    n_bytes = (pre_s.numel() * pre_s.element_size()
-               + sum(a.numel() * a.element_size() for a in planes)
-               + sum(a.numel() * a.element_size() for a in w)
-               + g * nd * k * (edge.idx.element_size()
-                               + edge.mask.element_size())
-               + valid * (3 * edge.x_dir.element_size()
-                          + r * edge.d_rbf.element_size())
-               + 4 * b * nd * (s + 3 * v))
-    macs = (h0 * s + s * v + 3 * h0 * v
-            + n_j * (3 * v * hj + s * s + hj * s + s * v + 3 * hj * v))
-    rows = valid * copies
-    return n_bytes, 2 * (macs * rows + (r * s + 3 * h0) * valid), rows
-
-
 def compare(name, got, want, tol) -> float:
     """Max abs error; raises where |got - want| > atol + rtol |want|."""
     worst = 0.0
@@ -1201,7 +1260,7 @@ def pp_times(dev, dtype: str, extra: dict, calls: int, replays: int):
                          calls=calls, replays=replays)
     ms = graph_ms(lambda: ppm.fused_message_agg(*args, **kw), calls=calls,
                   replays=replays)
-    n_bytes, n_ops, n_rows = pp_bound(args, kw)
+    n_bytes, n_ops, n_rows = ppm.message_agg_cost(*args, **kw)
     peak = PEAK_BF16_OPS if dtype == "bfloat16" else PEAK_FP32_OPS
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / peak
     return (ms, max(t_bytes, t_ops) * 1e3,
@@ -1537,6 +1596,301 @@ def phase_ppbwd(dev, cases=None) -> dict:
             "library_ms": None}
 
 
+# ----------------------------------------------------------------- graphs
+
+@contextlib.contextmanager
+def step_index_frozen():
+    """A planted fault: every chain step puts the chain's step counter
+    back after advancing it, so a captured chain replays step 0 (its
+    coefficients, timestep and noise) at every step: what a step that
+    read per-step Python values would bake into its graph."""
+    from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
+    real = PharmacophoreDiffusion.chain_step
+
+    def frozen(self, chain):
+        real(self, chain)
+        chain.state["i"].sub_(1)
+
+    PharmacophoreDiffusion.chain_step = frozen
+    try:
+        yield
+    finally:
+        PharmacophoreDiffusion.chain_step = real
+
+
+def timed_call(fn) -> tuple:
+    """(fn(), host seconds to its end on the device)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def replay_ms(model) -> float:
+    """Device milliseconds of the replays alone of `model`'s kept chain
+    graphs (CUDA events around `ChainGraphs.run`)."""
+    graphs = model._chain_graphs
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graphs.run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def captured_call(name: str, model, batch, kw: dict, corrected: bool,
+                  cached: bool) -> tuple:
+    """One `sample_given_receptor` call of `model` on the card, every count
+    set to 0 just before: exactly `expected_launches` replayed in
+    `chain_replays` graph replays (each graph's captured launches x its
+    replays) and, where the graphs were `cached`, nothing launched or
+    captured outside them; a first call launches its warm-up step and
+    captures U steps (and the T mod U left). Returns (final pharm_x on
+    the host, seconds)."""
+    cfg = model.config
+    reset_launches()
+    out, secs = timed_call(
+        lambda: model.sample_given_receptor(batch, **kw)["pharm_x"].cpu())
+    replayed, outside = read_replayed(), read_launches()
+    replays, corr = replay_counts()
+    want = expected_launches(cfg, corrected)
+    per_step = {k: v // cfg.n_timesteps for k, v in want.items()}
+    u = min(max(1, cfg.sample_scan_unroll), cfg.n_timesteps)
+    captured = {k: 0 if cached else v * (1 + u + cfg.n_timesteps % u)
+                for k, v in per_step.items()}
+    check(replayed == want and replays == chain_replays(cfg)
+          and corr == (cfg.n_timesteps if corrected else 0)
+          and outside == captured,
+          f"graphs {name}: replayed {replayed} in {replays} replays with "
+          f"{corr} correction passes, {outside} outside them; expected "
+          f"{want} in {chain_replays(cfg)}, {captured} outside")
+    return out, secs
+
+
+def phase_graphs(dev, n_pockets: int = 8, fs_pockets: int = 4,
+                 per_pocket: int = 30, atoms: int = 230, turns: int = 3,
+                 unrolls: tuple = (4, 7), dev_cfg=None, fs_cfg=None,
+                 wide_cfg=None, profile: bool = False) -> dict:
+    """The reverse chain as CUDA graphs (`models/diffusion.py::ChainGraphs`)
+    against the eager step loop (`eager_chain`) on the card, with the
+    same injected noise (generator seeds 3-6), every pair within the
+    chain tolerance 2e-3, the largest difference printed:
+
+    * the dev model (`dev_config`, fp32, T=100, random weights, seed 0),
+      `n_pockets` x `per_pocket` (B=240): captured against eager; the
+      first call (warm-up step and capture) and a later one (the graphs
+      kept and reused: nothing launched outside their replays); U in
+      `unrolls` (4; 7, which does not divide T: a tail graph) against
+      U=1; a planted fault (`step_index_frozen`), which must miss by at
+      least 10 x the tolerance, printed in units of it;
+    * the full-scale model (`full_config`, bf16, T=1000, the correction
+      with the probed k_out), `fs_pockets` x `per_pocket` (B=120):
+      captured against eager; U=7 against U=1; the same model with the
+      step tables, captured against eager;
+    * exact counts of every captured call (`captured_call`);
+    * capture time, graph pool bytes (U=1 and the largest U), and the
+      per-call overhead of a kept-graphs call: its wall beyond its
+      replays' device time;
+    * samples/s in alternating turns, `turns` of each: dev eager against
+      captured (plain, captured, captured, plain, ...); full scale eager,
+      captured and captured with tables; then captured only, the compact
+      tail against full width (`fullwidth_config`, T=100).
+      `profile` adds device kernels and busy share of a captured and an
+      eager T=20 full-scale chain under torch.profiler.
+
+    Returns {kind: samples/s per turn}."""
+    from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
+    dev_cfg = dev_cfg or dev_config()
+    fs_cfg = fs_cfg or full_config()
+    sizes = np.random.default_rng(0).integers(3, 9, per_pocket)
+    lines, rates = [], {}
+
+    def build(cfg, state=None, **over):
+        m = PharmacophoreDiffusion(
+            dataclasses.replace(cfg, **over), device=dev,
+            generator=None if state else torch.Generator().manual_seed(0))
+        if state:
+            m.load_state_dict(state)
+        return m
+
+    def setup(cfg, pockets: int, seed: int):
+        model = build(cfg)
+        pk = synthetic_pockets(pockets, atoms)
+        batch = stacked_batch(pk, sizes, atoms)
+        k_out = stacked_k_out(model, pk, atoms)
+        kw = dict(noise=chain_noise(batch.batch_size, cfg.n_timesteps,
+                                    seed=seed),
+                  pocket_group_size=per_pocket, pp_k_out=k_out)
+        return model, batch, kw, k_out
+
+    def stats(model) -> str:
+        g = model._chain_graphs
+        return (f"capture {g.capture_ms:.1f} ms host (warm-up step "
+                f"included), pool {g.pool_bytes} bytes, per capture "
+                f"{[c for _, _, c in g.graphs]}")
+
+    def diff(a, b) -> float:
+        return float((a - b).abs().max())
+
+    def turns_of(kinds: dict, b: int, outs: dict | None = None) -> dict:
+        """samples/s of each kind in alternating turns (ABBA...); `outs`
+        gets each kind's outputs."""
+        out = {k: [] for k in kinds}
+        order = list(kinds)
+        seq = []
+        for t in range(turns):
+            seq += order if t % 2 == 0 else order[::-1]
+        for k in seq:
+            got, secs = timed_call(kinds[k])
+            out[k].append(b / secs)
+            if outs is not None:
+                outs.setdefault(k, []).append(got)
+        return out
+
+    # ---- the dev model
+    model, batch, kw, _ = setup(dev_cfg, n_pockets, 3)
+    b = batch.batch_size
+    state = model.state_dict()
+    eager = eager_chain(model, batch, **kw)["pharm_x"].cpu()
+    first, first_s = captured_call("dev first", model, batch, kw, False,
+                                   cached=False)
+    again, again_s = captured_call("dev kept", model, batch, kw, False,
+                                   cached=True)
+    rep_ms = replay_ms(model)
+    err = diff(first, eager)
+    check(err < CHAIN_TOL and diff(again, eager) < CHAIN_TOL,
+          f"graphs dev: captured vs eager {err:.3e}")
+    dev_stats = stats(model)
+    with step_index_frozen():
+        faulty = build(dev_cfg, state).sample_given_receptor(
+            batch, **kw)["pharm_x"].cpu()
+    # a chain that rereads step 0 may overflow: a non-finite value misses
+    # by infinitely many tolerances
+    units = float(torch.nan_to_num((faulty - eager).abs(), nan=np.inf)
+                  .max()) / CHAIN_TOL
+    check(units >= 10, f"graphs dev: with the step index frozen the chain "
+                       f"differs by {units:.3f} x the tolerance, below 10")
+    unrolled = []
+    for u in unrolls:
+        m = build(dev_cfg, state, sample_scan_unroll=u)
+        got, secs = captured_call(f"dev U={u}", m, batch, kw, False,
+                                  cached=False)
+        d = diff(got, first)
+        check(d < CHAIN_TOL, f"graphs dev U={u}: {d:.3e} from U=1")
+        unrolled.append(f"U={u} {chain_replays(m.config)} replays, max|dx| "
+                        f"{d:.3e} from U=1, first call {secs:.3f} s, "
+                        f"{stats(m)}")
+        del m
+    rates["dev"] = turns_of({
+        "eager": lambda: eager_chain(model, batch, **kw)["pharm_x"].cpu(),
+        "captured": lambda: model.sample_given_receptor(
+            batch, **kw)["pharm_x"].cpu()}, b)
+    lines.append(
+        f"dev (fp32, T={dev_cfg.n_timesteps}, B={b}): captured vs eager "
+        f"max|dx| {err:.3e} (tolerance {CHAIN_TOL}); first call "
+        f"{first_s:.4f} s, kept graphs {again_s:.4f} s of which replays "
+        f"{rep_ms:.3f} ms on the device (per-call overhead "
+        f"{again_s * 1e3 - rep_ms:.3f} ms); {dev_stats}; planted fault "
+        f"(step index frozen) max|dx| {units * CHAIN_TOL:.3e} = "
+        f"{units:.2f} x the tolerance; " + "; ".join(unrolled))
+    del model
+
+    # ---- the full-scale model
+    model, batch, kw, k_out = setup(fs_cfg, fs_pockets, 5)
+    check(k_out > 0, f"graphs: the correction does not engage (k_out "
+                     f"{k_out})")
+    b = batch.batch_size
+    state = model.state_dict()
+    first, first_s = captured_call("fullscale first", model, batch, kw,
+                                   True, cached=False)
+    fs_stats = stats(model)
+    again, again_s = captured_call("fullscale kept", model, batch, kw, True,
+                                   cached=True)
+    rep_ms = replay_ms(model)
+    u = max(unrolls)
+    m = build(fs_cfg, state, sample_scan_unroll=u)
+    got, u_s = captured_call(f"fullscale U={u}", m, batch, kw, True,
+                             cached=False)
+    u_err = diff(got, first)
+    check(u_err < CHAIN_TOL, f"graphs fullscale U={u}: {u_err:.3e} from "
+                             f"U=1")
+    u_stats = stats(m)
+    del m
+    tab = build(fs_cfg, state, precompute_step_tables=True)
+    tab_first, tab_s = captured_call("tables first", tab, batch, kw, True,
+                                     cached=False)
+    tab_eager = eager_chain(tab, batch, **kw)["pharm_x"].cpu()
+    tab_err = diff(tab_first, tab_eager)
+    check(tab_err < CHAIN_TOL, f"graphs tables: captured vs eager "
+                               f"{tab_err:.3e}")
+    # the eager turns are the chains the captured one is held against
+    outs: dict = {}
+    rates["fullscale"] = turns_of({
+        "eager": lambda: eager_chain(model, batch, **kw)["pharm_x"].cpu(),
+        "captured": lambda: captured_call("fullscale turn", model, batch, kw,
+                                          True, cached=True)[0],
+        "captured tables": lambda: captured_call(
+            "tables turn", tab, batch, kw, True, cached=True)[0]}, b, outs)
+    err = max(diff(c, e) for c in [first, again] + outs["captured"]
+              for e in outs["eager"])
+    check(err < CHAIN_TOL, f"graphs fullscale: captured vs eager {err:.3e}")
+    lines.append(
+        f"fullscale ({fs_cfg.compute_dtype}, T={fs_cfg.n_timesteps}, B={b}, "
+        f"k_out {k_out}): captured vs eager max|dx| {err:.3e}; first call "
+        f"{first_s:.4f} s, kept graphs {again_s:.4f} s of which replays "
+        f"{rep_ms:.3f} ms on the device (per-call overhead "
+        f"{again_s * 1e3 - rep_ms:.3f} ms); U=1 {fs_stats}; U={u} "
+        f"{chain_replays(dataclasses.replace(fs_cfg, sample_scan_unroll=u))}"
+        f" replays, max|dx| {u_err:.3e} from U=1, first call {u_s:.4f} s, "
+        f"{u_stats}; step tables captured vs eager max|dx| {tab_err:.3e}, "
+        f"first call {tab_s:.4f} s")
+    if profile:
+        short = dict(kw, noise=chain_noise(b, 20, seed=6))
+        for name, m in (("captured", build(fs_cfg, state, n_timesteps=20)),
+                        ("eager", build(fs_cfg, state, n_timesteps=20))):
+            run = (lambda: m.sample_given_receptor(batch, **short)) \
+                if name == "captured" else \
+                (lambda: eager_chain(m, batch, **short))
+            run()
+            n, busy, wall = device_kernels(run)
+            lines.append(f"profile {name} T=20: {n} device kernels and "
+                         f"copies, busy {busy:.4f} s of {wall:.4f} s "
+                         f"({100 * busy / wall:.1f}%)")
+    del model, tab
+
+    # ---- compact tail against full width, captured
+    wide_cfg = wide_cfg or fullwidth_config()
+    compact_cfg = dataclasses.replace(wide_cfg, compact_prot_tail=True)
+    runs = {}
+    for name, cfg in (("compact", compact_cfg), ("full width", wide_cfg)):
+        m = build(cfg, state)
+        pk = synthetic_pockets(fs_pockets, atoms)
+        kw_c = dict(noise=chain_noise(b, cfg.n_timesteps, seed=6),
+                    pocket_group_size=per_pocket,
+                    pp_k_out=stacked_k_out(m, pk, atoms))
+        captured_call(f"{name} first", m, batch, kw_c, kw_c["pp_k_out"] > 0,
+                      cached=False)
+        runs[name] = (lambda m=m, kw_c=kw_c, name=name: captured_call(
+            f"{name} turn", m, batch, kw_c, kw_c["pp_k_out"] > 0,
+            cached=True)[0])
+    rates["compact vs full width"] = turns_of(runs, b)
+    del runs
+
+    def fmt(r: dict) -> str:
+        return ", ".join(f"{k} {' '.join(f'{x:.4f}' for x in v)} (median "
+                         f"{float(np.median(v)):.4f})" for k, v in r.items())
+
+    print(f"graphs: on {card()}: " + "; ".join(lines)
+          + "; samples/s in alternating turns: "
+          + "; ".join(f"{kind}: {fmt(r)}" for kind, r in rates.items())
+          + f" (compact and full width at T={wide_cfg.n_timesteps})",
+          flush=True)
+    return rates
+
+
 # -------------------------------------------------------------- fullscale
 
 def phase_fullscale(dev, profile: bool = False,
@@ -1561,7 +1915,8 @@ class FirstCall(Exception):
 
 @contextlib.contextmanager
 def first_call(model, kept: list, state: list):
-    """Inside the block, `model`'s chain stops at its first denoiser call,
+    """Inside the block, `model`'s eager chain (`eager_chain`: the hooks
+    copy to the host) stops at its first denoiser call,
     whose outputs (eps_h, eps_x) go to `kept` and the second conv's output
     there (prot scalars and vectors, pharm scalars and vectors) to
     `state`."""
@@ -1685,16 +2040,17 @@ def phase_tables(dev, n_pockets: int = 4, per_pocket: int = 30,
     * an fp32 chain of `cmp_steps` steps, tables on against off, final
       coordinates within the chain tolerance;
     * a bf16 T=1000 chain of each path through
-      `PocketSampler.sample_stacked` (generator seed 2): samples/s of
-      both, exactly 1,000 K1, 3,000 K2 and 1,000 correction passes in
-      each, the final coordinates' deviation printed only. `per_step`
-      (the fullscale phase's `keep`: the same model, pockets and seed)
-      stands for the per-step chain where given;
-    * device kernels per step of each path: profiled chains of
+      `PocketSampler.sample_stacked` (generator seed 2) after a call that
+      captures its graphs: samples/s of both, exactly 1,000 K1, 3,000 K2
+      and 1,000 correction passes in each (graph replays), the final
+      coordinates' deviation printed only. `per_step` (the fullscale
+      phase's `keep`: the same model, pockets and seed) stands for the
+      per-step chain where given;
+    * device kernels per step of each path: profiled eager step loops
+      (`eager_chain`, the kernels a captured step holds) of
       `kernel_steps` lengths, the difference over the extra steps.
 
     Returns the launches of the T=1000 tables chain."""
-    from pharmaforge_tpu_torch.models import conv
     from pharmaforge_tpu_torch.models.diffusion import (
         PharmacophoreDiffusion, step_table_plan)
     from pharmaforge_tpu_torch.models.dynamics import (
@@ -1756,8 +2112,9 @@ def phase_tables(dev, n_pockets: int = 4, per_pocket: int = 30,
         m.load_state_dict(state)
         kept, conv_state = [], []
         with fault(), first_call(m, kept, conv_state):
-            m.sample_given_receptor(batch, noise=noise, pocket_group_size=c,
-                                    pp_k_out=k_out)
+            # the eager step loop: the hooks copy to the host
+            eager_chain(m, batch, noise=noise, pocket_group_size=c,
+                        pp_k_out=k_out)
         check(len(kept) == len(conv_state) == 1,
               "tables: no first denoiser call kept")
         return kept[0], conv_state[0]
@@ -1814,18 +2171,23 @@ def phase_tables(dev, n_pockets: int = 4, per_pocket: int = 30,
         m = PharmacophoreDiffusion(run_cfg, device=dev)
         m.load_state_dict(state)
         sampler = PocketSampler(m, fixed_prot_slots=atoms, device=dev)
+        gen.manual_seed(1)
+        sampler.sample_stacked(pockets, n_pharms, gen)   # capture
         gen.manual_seed(2)
+        torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
         sampler.sample_stacked(pockets, n_pharms, gen)
         torch.cuda.synchronize()
         rates[name] = n_pockets * per_pocket / (time.perf_counter() - t0)
-        counts = read_launches()
+        counts = read_replayed()
         check(counts == want_launches
-              and conv.corrections == run_cfg.n_timesteps,
-              f"tables: {name} chain launches {counts}, "
-              f"{conv.corrections} correction passes, expected "
-              f"{want_launches}")
+              and replay_counts() == (chain_replays(run_cfg),
+                                      run_cfg.n_timesteps)
+              and not any(read_launches().values()),
+              f"tables: {name} chain launches {counts} in "
+              f"{replay_counts()} graph replays and correction passes, "
+              f"{read_launches()} outside them, expected {want_launches}")
         outs[name] = sampler.last_output["pharm_x"]
         launches = counts
     bf16_dev = float(np.abs(outs["tables"] - outs["per-step"]).max())
@@ -1838,10 +2200,11 @@ def phase_tables(dev, n_pockets: int = 4, per_pocket: int = 30,
             m = PharmacophoreDiffusion(dataclasses.replace(
                 run_cfg, n_timesteps=steps), device=dev)
             m.load_state_dict(state)
-            sampler = PocketSampler(m, fixed_prot_slots=atoms, device=dev)
             gen.manual_seed(5)
-            found.append(device_kernels(
-                lambda: sampler.sample_stacked(pockets, n_pharms, gen)))
+            # the eager step loop: the kernels one captured step holds
+            found.append(device_kernels(lambda: eager_chain(
+                m, batch, generator=gen, pocket_group_size=c,
+                pp_k_out=k_out)))
         (n0, _, _), (n1, busy1, wall1) = found
         extra = kernel_steps[1] - kernel_steps[0]
         per_step[name] = (f"{(n1 - n0) / extra:.1f} device kernels and "
@@ -1992,7 +2355,9 @@ def phase_train(dev, profile: bool = False, config_fn=train_config,
     K3 twice; losses are finite; the checkpoint restores bit-equal weights;
     train steps/s over the timed steps (the first step of each run is the
     warm-up; validation and sampling fall between steps and are not
-    timed). Returns the launch counts of the 2-epoch fit."""
+    timed). Returns the launch counts of the 2-epoch fit: the wrappers'
+    (eager steps and validation, and the sampling evaluation's captures)
+    and its sampling chain's graph replays'."""
     import tempfile
     from pharmaforge_tpu_torch.config.load_from_config import (
         data_module_from_config, model_from_config)
@@ -2018,7 +2383,9 @@ def phase_train(dev, profile: bool = False, config_fn=train_config,
         trainer.fit(model, dm)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        fit_launches = read_launches()
+        fit_launches, fit_replayed = read_launches(), read_replayed()
+        check(replay_counts()[0] > 0,
+              f"train: the sampling evaluation ran no graph replay")
         check(len(per_step) == trainer.global_step > 0,
               f"train: {len(per_step)} counted steps, global step "
               f"{trainer.global_step}")
@@ -2073,10 +2440,57 @@ def phase_train(dev, profile: bool = False, config_fn=train_config,
           f"{validity[0]:.3f}); train total loss {losses_train[0]:.4f} -> "
           f"{losses_train[-1]:.4f}, val {meta['monitored']:.4f}; launches "
           f"per optimizer step {PER_STEP} in all {len(per_step)} steps; "
-          f"the 2-epoch fit launched {fit_launches}; checkpoint round trip "
+          f"the 2-epoch fit launched {fit_launches} and its sampling "
+          f"evaluation's graphs replayed {fit_replayed}; checkpoint round "
+          f"trip "
           f"bit-equal; {cmp}; dataset generated in {gen_s:.1f} s",
           flush=True)
-    return fit_launches
+    return fit_launches, fit_replayed
+
+
+# ------------------------------------------------------------------ bench
+
+# the keys of `python -m pharmaforge_tpu_torch.bench`'s line at its default
+# workloads: the JAX bench.py's (bench.py:662-727) but
+# step_cost_model_gbytes_unfused and torch_executor_samples_per_sec_host_cpu,
+# with device, power_limit_w, host_cpu, torch_version and cuda_version
+BENCH_KEYS = (
+    "metric", "platform", "workload", "value", "unit", "vs_baseline",
+    "baseline_samples_per_sec", "spread_min", "spread_max", "repeats",
+    "rates_per_repeat", "pipeline_depth", "pockets_per_call",
+    "chain_latency_ms", "mfu_vs_bf16_peak", "chain_gflops", "device",
+    "power_limit_w", "host_cpu", "torch_version", "cuda_version",
+    "train_steps_per_sec", "train_step_device_ms", "train_batch_size",
+    "fullscale_train_steps_per_sec", "fullscale_train_step_device_ms",
+    "fullscale_train_batch_size", "fullscale_samples_per_sec",
+    "fullscale_spread_min", "fullscale_spread_max",
+    "fullscale_chain_latency_ms", "fullscale_mfu", "fullscale_vs_baseline",
+    "fullscale_workload")
+
+
+def phase_bench(dev, argv=("--repeats", "2")) -> dict:
+    """`pharmaforge_tpu_torch.bench.main` at its default workloads with
+    `argv` (it prints its JSON line): every key of BENCH_KEYS, the rates
+    positive, the MFU figures at most 1, on this card."""
+    from pharmaforge_tpu_torch import bench
+    res = bench.main(list(argv) + ["--device", str(dev)])
+    missing = [k for k in BENCH_KEYS if k not in res]
+    check(not missing, f"bench: keys missing {missing}")
+    rates = [res["value"], res["spread_min"], res["train_steps_per_sec"],
+             res["fullscale_samples_per_sec"], res["fullscale_spread_min"],
+             res["fullscale_train_steps_per_sec"], *res["rates_per_repeat"]]
+    check(all(r > 0 for r in rates), f"bench: rates {rates}")
+    mfu = (res["mfu_vs_bf16_peak"], res["fullscale_mfu"])
+    check(all(m is not None and 0 < m <= 1 for m in mfu)
+          and "timing_suspect" not in res, f"bench: MFU {mfu}")
+    check(res["platform"] == "gpu"
+          and res["device"] == torch.cuda.get_device_name(dev),
+          f"bench: platform {res['platform']}, device {res['device']}")
+    print(f"bench: on {card()}: {res['value']} samples/s dev (median of "
+          f"{res['repeats']}), {res['fullscale_samples_per_sec']} full "
+          f"scale, train steps/s {res['train_steps_per_sec']} / "
+          f"{res['fullscale_train_steps_per_sec']}, MFU {mfu}", flush=True)
+    return res
 
 
 # ------------------------------------------------------------------- dist
@@ -2096,10 +2510,10 @@ def dist_setup(data_dir: str, run_dir: str, device: str, backend,
     `config_fn(data_dir)` into `run_dir`, then one `PocketSampler.sample_stacked`
     of `sample_cfg` with the trained weights. Returns (launches per
     optimizer step, the weights after the fit, the sampled dense
-    centres, the rank)."""
+    centres, the rank, the chain's graph replays on this rank)."""
     from pharmaforge_tpu_torch.config.load_from_config import (
         data_module_from_config, model_from_config)
-    from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
+    from pharmaforge_tpu_torch.models import diffusion
     from pharmaforge_tpu_torch.parallel import mesh
     from pharmaforge_tpu_torch.training.sampling import PocketSampler
     from pharmaforge_tpu_torch.training.trainer import Trainer
@@ -2112,13 +2526,15 @@ def dist_setup(data_dir: str, run_dir: str, device: str, backend,
     model = model_from_config(config, device=dev)
     trainer.fit(model, data_module_from_config(config))
     weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    sampler_model = PharmacophoreDiffusion(sample_cfg, device=dev)
+    sampler_model = diffusion.PharmacophoreDiffusion(sample_cfg, device=dev)
     sampler_model.load_state_dict(model.state_dict())
     sampler = PocketSampler(sampler_model, fixed_prot_slots=atoms,
                             device=dev)
+    replays = diffusion.graph_replays
     sampler.sample_stacked(pockets, [sizes] * len(pockets),
                            torch.Generator(device=dev).manual_seed(7))
-    return per_step, weights, sampler.last_output["pharm_x"], mesh.rank()
+    return (per_step, weights, sampler.last_output["pharm_x"], mesh.rank(),
+            diffusion.graph_replays - replays)
 
 
 def weights_close(got: dict, want: dict) -> tuple:
@@ -2211,10 +2627,16 @@ def phase_dist(dev, config_fn=dist_config, samples_per_split: int = 24,
                       if k != "step")
             check(rel <= 1e-4, f"dist {name}: metrics within {rel:.3e}")
             worst, equal, sample_dev = 0.0, True, 0.0
-            for per_step, weights, centres, r in ranks:
+            for per_step, weights, centres, r, replays in ranks:
                 check(len(per_step) == len(alone[0]) > 0 and all(
                     c == PER_STEP for c in per_step),
                     f"dist {name} rank {r}: launches per step {per_step}")
+                # each rank captures and replays its own chain
+                want_replays = (chain_replays(sample_cfg)
+                                if dev.type == "cuda" else 0)
+                check(replays == want_replays,
+                      f"dist {name} rank {r}: {replays} graph replays, "
+                      f"expected {want_replays}")
                 w, e = weights_close(weights, alone[1])
                 worst, equal = max(worst, w), equal and e
                 sample_dev = max(sample_dev,
@@ -2226,7 +2648,8 @@ def phase_dist(dev, config_fn=dist_config, samples_per_split: int = 24,
             lines.append(f"{name} ({len(ranks)} rank{'s' * (len(ranks) > 1)}"
                          f", {secs:.1f} s with start-up): {len(alone[0])} "
                          f"steps, {PER_STEP} launches every step on every "
-                         f"rank, weights at {worst:.4f} of the train-step "
+                         f"rank, each rank's chain {want_replays} graph "
+                         f"replays, weights at {worst:.4f} of the train-step "
                          f"bound (bit-equal {equal}), metrics max rel "
                          f"{rel:.3e}, files as the no-group run's, "
                          f"sample_stacked max|dx| {sample_dev:.3e} "
@@ -2365,7 +2788,11 @@ def chain_seconds(pocket_dir: Path) -> float:
 
 def run_cli(main, argv: list) -> tuple:
     """(return value, launch counts, wall seconds, stdout) of one CLI
-    `main(argv)` in this process, every count set to 0 just before."""
+    `main(argv)` in this process, every count set to 0 just before. The
+    counts are the wrappers' where no chain graph replayed (a fit), else
+    the chain's replayed launches, and then no launch may have been made
+    beyond the chain's warm-up step and its capture (2 x a step's at
+    U=1): nothing fell back to the eager loop."""
     import io
     buf = io.StringIO()
     reset_launches()
@@ -2374,7 +2801,15 @@ def run_cli(main, argv: list) -> tuple:
         out = main([str(a) for a in argv])
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    return out, read_launches(), time.perf_counter() - t0, buf.getvalue()
+    counts = read_launches()
+    replays = replay_counts()[0]
+    if replays:
+        replayed = read_replayed()
+        check(all(2 * replayed[k] >= counts[k] * replays for k in counts),
+              f"cli: {counts} launched outside the graphs' {replays} "
+              f"replays ({replayed})")
+        counts = replayed
+    return out, counts, time.perf_counter() - t0, buf.getvalue()
 
 
 def xyz_frames(path: Path) -> list:
@@ -3135,6 +3570,7 @@ def main() -> int:
     prep_launches = timed(phase_preprocess, dev)
     knn = timed(phase_knn, dev)
     timed(phase_golden, dev)
+    timed(phase_graphs, dev, profile=profile)
     dev_launches = timed(phase_main, dev, profile)
     pp = timed(phase_pp, dev)
     per_step: dict = {}
@@ -3142,13 +3578,20 @@ def main() -> int:
     width_launches = timed(phase_fullwidth, dev, profile)
     tables_launches = timed(phase_tables, dev, per_step=per_step)
     ppbwd = timed(phase_ppbwd, dev)
-    train_launches = timed(phase_train, dev, profile)
+    train_launches, train_replayed = timed(phase_train, dev, profile)
     dist_launches = timed(phase_dist, dev)
     cli_launches = timed(phase_cli, dev)
+    timed(phase_bench, dev)
     kernels = [knn, pp, ppbwd]
     for kern in kernels:
-        # `launches`: this slice's main path, the 2-epoch training run
+        # `launches`: the 2-epoch training run, as the wrappers count
+        # (eager steps; its sampling chain's launches where captured)
         kern["launches"] = train_launches[kern["name"]]
+        # the chain launches below: each graph's captured launches x its
+        # replays (`diffusion.replayed_launches`)
+        kern["launches_replayed_fit"] = train_replayed[kern["name"]]
+        kern["graph_replays_fullscale_chain"] = chain_replays(full_config())
+        kern["graph_replays_dev_chain"] = chain_replays(dev_config())
         kern["launches_fullscale_chain"] = full_launches[kern["name"]]
         kern["launches_fullwidth_chain_t100"] = width_launches[kern["name"]]
         kern["launches_dev_chain"] = dev_launches[kern["name"]]

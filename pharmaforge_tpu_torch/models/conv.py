@@ -58,7 +58,9 @@ from pharmaforge_tpu_torch.ops.pp_message import (
 )
 
 # pocket-copy correction passes run (`_fused_pp_corrected` calls), as the
-# kernels' wrappers count their launches
+# kernels' wrappers count their launches: a pass inside a CUDA graph
+# capture counts once, where it is captured, not at each replay
+# (`diffusion.replayed_launches` counts the replays')
 corrections = 0
 
 # canonical edge types (src_ntype, name, dst_ntype), reference

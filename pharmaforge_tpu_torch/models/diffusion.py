@@ -7,8 +7,11 @@ loss draws its timesteps, noise and dropout masks from an explicit
 `torch.Generator` (or takes them injected), switches the model to train
 mode (dropout on) and returns tensors, so autograd differentiates it;
 sampling switches back to eval mode. The JAX package runs
-the chain as one `lax.scan`; here it is a Python loop over T whose every
-step calls the denoiser once. The chain keeps the JAX package's contract:
+the chain as one `lax.scan`; here the chain is split into its set-up
+(`chain_setup`), a step that reads and writes device tensors only
+(`chain_step`, the scan body) and its result (`chain_result`), and on the
+card the steps run as replays of CUDA graphs (`ChainGraphs`), with no
+host round trip between steps. The chain keeps the JAX package's contract:
 injected-noise keys `x_T`, `h_T`, `pos`, `feat`; COM removal at every
 step; noise added at s=0 too; both endpoint parameterisations;
 [T+1, B, F, .] trajectory frames with the initial frame first; the same
@@ -18,6 +21,7 @@ finalisation back into the pocket frame.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -27,6 +31,7 @@ from torch.nn import functional as F
 
 from pharmaforge_tpu_torch import resolve_device
 from pharmaforge_tpu_torch.data.batch import PharmComplexBatch
+from pharmaforge_tpu_torch.models import conv
 from pharmaforge_tpu_torch.models.dynamics import (
     PharmRecDynamics,
     precompute_sampling_tables,
@@ -38,6 +43,7 @@ from pharmaforge_tpu_torch.models.edges import (
 )
 from pharmaforge_tpu_torch.models.gvp import batch_rows, reset_parameters_
 from pharmaforge_tpu_torch.models.schedules import make_gamma_table
+from pharmaforge_tpu_torch.ops import knn_select, pp_message
 from pharmaforge_tpu_torch.ops.geometry import masked_com
 from pharmaforge_tpu_torch.ops.pp_message import COMPUTE_DTYPES
 from pharmaforge_tpu_torch.parallel.mesh import all_reduce_sum
@@ -79,7 +85,11 @@ class DiffusionConfig:
     than False runs the middle convs' prot-prot chain through the fused
     kernel (`ops/pp_message.py`), and with it the pocket-copy correction
     (`sample_given_receptor`'s `pp_k_out`); `compute_dtype` is "float32"
-    or "bfloat16" (the edge-message chains)."""
+    or "bfloat16" (the edge-message chains). `sample_scan_unroll` is U,
+    the denoiser steps of one CUDA graph of the reverse chain
+    (`ChainGraphs`; the JAX scan's unroll): the chain replays that graph
+    T // U times, then a graph of the T mod U steps left; on the CPU the
+    steps run eagerly, U at a time."""
 
     pharm_nf: int = 6
     rec_nf: int = 11
@@ -442,12 +452,50 @@ class PharmacophoreDiffusion(nn.Module):
         below the pp graph's maximum out-degree raises ValueError.
 
         With `precompute_step_tables` the first conv's (timestep,
-        pocket)-only work is built for all T steps before the loop
+        pocket)-only work is built for all T steps before the chain
         (`dynamics.precompute_sampling_tables`, in chunks of steps sized
         by `step_table_plan`) and each step reads its slice. Where the
         tables' bytes exceed `precompute_table_budget`, the chain computes
         every step in full, as the JAX package does: a documented gate of
-        the configuration, not a fallback of the device."""
+        the configuration, not a fallback of the device.
+
+        The chain runs in three parts, as the JAX package's one `lax.scan`
+        (diffusion.py:487-550) does: `chain_setup` once (pp edges, out-edge
+        tables, step tables, noise, the per-step coefficient and timestep
+        tables on the device), T calls of `chain_step`, which reads and
+        writes only device tensors, and `chain_result`. On the card the
+        steps are replays of CUDA graphs of U = max(1,
+        `sample_scan_unroll`) steps each (and one graph of the last T mod
+        U steps), with no host round trip between steps (`ChainGraphs`);
+        a capture that fails raises. The graphs of the last signature stay
+        on the model and serve the next chain of the same shapes, flags
+        and parameter storage, as the JAX sampler reuses its jit. On the
+        CPU the same step runs eagerly, U steps at a time."""
+        chain = self.chain_setup(batch, generator, init_pharm_com,
+                                 visualize_trajectory, noise,
+                                 pocket_group_size, pp_k_out)
+        unroll = max(1, self.config.sample_scan_unroll)
+        if chain.device.type == "cuda":
+            graphs = self._graphs_for(chain, unroll)
+            graphs.run()
+            chain = graphs.chain
+        else:
+            for start in range(0, chain.n_steps, unroll):
+                for _ in range(min(unroll, chain.n_steps - start)):
+                    self.chain_step(chain)
+        return self.chain_result(chain)
+
+    @torch.no_grad()
+    def chain_setup(self, batch: PharmComplexBatch,
+                    generator: Optional[torch.Generator] = None,
+                    init_pharm_com=None, visualize_trajectory: bool = False,
+                    noise: Optional[Dict[str, Any]] = None,
+                    pocket_group_size: int = 1,
+                    pp_k_out: int = 0) -> "ReverseChain":
+        """Everything a chain does before its first step, once per chain
+        (`sample_given_receptor`'s arguments). Holds the one host sync of
+        a chain (the out-degree check of `build_pp_out_edges`), outside
+        every graph."""
         cfg = self.config
         self.eval()
         dev = self.device
@@ -470,92 +518,313 @@ class PharmacophoreDiffusion(nn.Module):
         pp_out = None
         if pocket_group_size > 1:
             c = pocket_group_size
-            _, ed_g = build_pp_edge(prot_x0[::c], prot_mask[::c],
-                                    self.cutoffs["pp"], cfg.pp_k_max)
-            pp_edge = GroupedEdgeData(ed_g.mask, ed_g.idx, ed_g.x_dir,
-                                      ed_g.d_rbf, copies=c)
+            _, pp_edge = build_pp_edge(prot_x0[::c], prot_mask[::c],
+                                       self.cutoffs["pp"], cfg.pp_k_max)
             # the pp edge's transpose, static over the chain
             if pp_k_out:
-                pp_out = build_pp_out_edges(ed_g, int(pp_k_out))
+                pp_out = build_pp_out_edges(pp_edge, int(pp_k_out))
         else:
             _, pp_edge = build_pp_edge(prot_x0, prot_mask,
                                        self.cutoffs["pp"], cfg.pp_k_max)
 
+        n_t = cfg.n_timesteps
+        coef, t_values = self._schedule()
         # the (timestep, pocket)-only work of the first conv, for every
         # step at once, where the tables fit the budget
         tables = None
         if cfg.precompute_step_tables:
             c = pocket_group_size
-            ed_g = pp_edge.as_edge_data() if c > 1 else pp_edge
             table_bytes, chunk = step_table_plan(
-                cfg, ed_g.mask.shape[0], ed_g.mask.shape[1],
-                ed_g.mask.shape[2])
+                cfg, pp_edge.mask.shape[0], pp_edge.mask.shape[1],
+                pp_edge.mask.shape[2])
             if table_bytes <= cfg.precompute_table_budget:
-                t_values = torch.tensor(
-                    [np.float32(s + 1) / np.float32(cfg.n_timesteps)
-                     for s in range(cfg.n_timesteps - 1, -1, -1)],
-                    dtype=torch.float32, device=dev)
                 tables = precompute_sampling_tables(
-                    self.dynamics, prot_h[::c], prot_mask[::c], ed_g,
+                    self.dynamics, prot_h[::c], prot_mask[::c], pp_edge,
                     t_values, chunk)
 
         prot_x = prot_x0 - init_pharm_com[:, None]
-        n_t = cfg.n_timesteps
         noise = dict(noise or {})
         noise = {**draw_chain_noise(generator, b, f, cfg.pharm_nf, n_t,
                                     initial="x_T" not in noise,
                                     steps="pos" not in noise), **noise}
         x_t = self._tensor(noise["x_T"], torch.float32) * fmask
         h_t = self._tensor(noise["h_T"], torch.float32) * fmask
-        pos_noise = self._tensor(noise["pos"], torch.float32)
-        feat_noise = self._tensor(noise["feat"], torch.float32)
-        x_init, h_init, prot_x_init = x_t, h_t, prot_x
-
-        def frame(x_t, h_t, prot_x):
-            """Trajectory frame in the initial pocket frame."""
-            delta = init_prot_com - masked_com(prot_x, prot_mask)
-            return ((x_t + delta[:, None]) * fmask,
-                    h_t * cfg.pharm_feat_norm_constant)
-
-        coef = _step_coefficients(self.gamma_table, cfg)
-        frames = [frame(x_init, h_init, prot_x_init)] \
-            if visualize_trajectory else None
-        for i in range(n_t):
-            s = n_t - 1 - i
-            alpha_tgs, var_terms, sigma, c_x, c_pred = (float(v)
-                                                        for v in coef[i])
-            t_arr = torch.full((b,), float(np.float32(s + 1)
-                                           / np.float32(n_t)),
-                               dtype=torch.float32, device=dev)
-            pred_h, pred_x = self.dynamics(
-                h_t, x_t, pharm_mask, prot_h, prot_x, prot_mask, t_arr,
-                pp_edge=pp_edge, pocket_group_size=pocket_group_size,
-                pp_out=pp_out,
-                step_tables=None if tables is None else tables.step(i))
-            if cfg.endpoint_param_coord:
-                mu_pos = c_x * x_t + c_pred * pred_x
-            else:
-                mu_pos = x_t / alpha_tgs - var_terms * pred_x
-            if cfg.endpoint_param_feat:
-                mu_feat = c_x * h_t + c_pred * pred_h
-            else:
-                mu_feat = h_t / alpha_tgs - var_terms * pred_h
-            # noise is added at EVERY step including s=0
-            x_t = (mu_pos + sigma * pos_noise[i]) * fmask
-            h_t = (mu_feat + sigma * feat_noise[i]) * fmask
-            com = masked_com(x_t, pharm_mask)
-            x_t = (x_t - com[:, None]) * fmask
-            prot_x = prot_x - com[:, None]
-            if visualize_trajectory:
-                frames.append(frame(x_t, h_t, prot_x))
-
-        # finalize (pharmacodiff.py:479-488)
-        prot_com = masked_com(prot_x, prot_mask)
-        x_0 = (x_t - prot_com[:, None]) * fmask
-        x_0 = (x_0 + init_prot_com[:, None]) * fmask
-        h_0 = h_t * cfg.pharm_feat_norm_constant
-        out = {"pharm_x": x_0, "pharm_h": h_0, "pharm_mask": pharm_mask}
+        chain = ReverseChain(
+            inputs=dict(
+                pharm_mask=pharm_mask, fmask=fmask, prot_h=prot_h,
+                prot_mask=prot_mask, init_prot_com=init_prot_com,
+                pp_edge=pp_edge, pp_out=pp_out, tables=tables,
+                pos_noise=self._tensor(noise["pos"], torch.float32),
+                feat_noise=self._tensor(noise["feat"], torch.float32),
+                coef=coef, t=t_values),
+            state=dict(x=x_t, h=h_t, prot_x=prot_x,
+                       i=torch.zeros(1, dtype=torch.int64, device=dev)),
+            pocket_group_size=pocket_group_size, n_steps=n_t)
         if visualize_trajectory:
-            out["traj_x"] = torch.stack([fr[0] for fr in frames])
-            out["traj_h"] = torch.stack([fr[1] for fr in frames])
+            x0, h0 = self._frame(chain, x_t, h_t, prot_x)
+            chain.state["traj_x"] = x0.new_zeros((n_t + 1,) + x0.shape)
+            chain.state["traj_h"] = h0.new_zeros((n_t + 1,) + h0.shape)
+            chain.state["traj_x"][0] = x0
+            chain.state["traj_h"][0] = h0
+        return chain
+
+    def _schedule(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The chain's per-step tables on the model's device, made once
+        per device (no host copy, so no sync, in a later chain's set-up):
+        coef [T, 5] (`_step_coefficients`) and the timestep of every step
+        in loop order, t [T] (float32 s+1 over T, the values the per-step
+        `torch.full` took)."""
+        dev = self.device
+        tables = getattr(self, "_schedule_tables", None)
+        if tables is None or tables[0].device != dev:
+            n_t = self.config.n_timesteps
+            tables = (
+                torch.from_numpy(_step_coefficients(
+                    self.gamma_table, self.config)).to(dev),
+                torch.tensor([np.float32(s + 1) / np.float32(n_t)
+                              for s in range(n_t - 1, -1, -1)],
+                             dtype=torch.float32, device=dev))
+            self._schedule_tables = tables
+        return tables
+
+    def _frame(self, chain: "ReverseChain", x_t, h_t, prot_x):
+        """Trajectory frame in the initial pocket frame."""
+        inp = chain.inputs
+        delta = inp["init_prot_com"] - masked_com(prot_x, inp["prot_mask"])
+        return ((x_t + delta[:, None]) * inp["fmask"],
+                h_t * self.config.pharm_feat_norm_constant)
+
+    @torch.no_grad()
+    def chain_step(self, chain: "ReverseChain") -> None:
+        """One denoiser step of `chain`, in place: the JAX package's scan
+        body (diffusion.py:487-546). Every per-step value comes from a
+        device tensor indexed by the chain's device step counter `i` (the
+        coefficients, the timestep, the noise, the step tables), and the
+        step writes the new state into the chain's own tensors (and, with
+        a trajectory, its frame at index i + 1) before it advances `i`, so
+        a CUDA graph of it replays as the next step. No host sync."""
+        cfg = self.config
+        inp, st = chain.inputs, chain.state
+        i = st["i"]
+        b = st["x"].shape[0]
+        c = chain.pocket_group_size
+        alpha_tgs, var_terms, sigma, c_x, c_pred = \
+            inp["coef"].index_select(0, i)[0].unbind()
+        t_arr = inp["t"].index_select(0, i).expand(b)
+        pp_edge = inp["pp_edge"]
+        if c > 1:
+            pp_edge = GroupedEdgeData(*pp_edge, copies=c)
+        x_t, h_t = st["x"], st["h"]
+        pred_h, pred_x = self.dynamics(
+            h_t, x_t, inp["pharm_mask"], inp["prot_h"], st["prot_x"],
+            inp["prot_mask"], t_arr, pp_edge=pp_edge, pocket_group_size=c,
+            pp_out=inp["pp_out"],
+            step_tables=None if inp["tables"] is None
+            else inp["tables"].step(i))
+        if cfg.endpoint_param_coord:
+            mu_pos = c_x * x_t + c_pred * pred_x
+        else:
+            mu_pos = x_t / alpha_tgs - var_terms * pred_x
+        if cfg.endpoint_param_feat:
+            mu_feat = c_x * h_t + c_pred * pred_h
+        else:
+            mu_feat = h_t / alpha_tgs - var_terms * pred_h
+        # noise is added at EVERY step including s=0
+        fmask = inp["fmask"]
+        x_new = (mu_pos + sigma * inp["pos_noise"].index_select(0, i)[0]) \
+            * fmask
+        h_new = (mu_feat + sigma * inp["feat_noise"].index_select(0, i)[0]) \
+            * fmask
+        com = masked_com(x_new, inp["pharm_mask"])
+        x_new = (x_new - com[:, None]) * fmask
+        prot_new = st["prot_x"] - com[:, None]
+        if "traj_x" in st:
+            fx, fh = self._frame(chain, x_new, h_new, prot_new)
+            st["traj_x"].index_copy_(0, i + 1, fx[None])
+            st["traj_h"].index_copy_(0, i + 1, fh[None])
+        st["x"].copy_(x_new)
+        st["h"].copy_(h_new)
+        st["prot_x"].copy_(prot_new)
+        i.add_(1)
+
+    @torch.no_grad()
+    def chain_result(self, chain: "ReverseChain") -> Dict[str, torch.Tensor]:
+        """Finalize a chain after its T steps (pharmacodiff.py:479-488):
+        new tensors, none of them the chain's own."""
+        inp, st = chain.inputs, chain.state
+        fmask = inp["fmask"]
+        prot_com = masked_com(st["prot_x"], inp["prot_mask"])
+        x_0 = (st["x"] - prot_com[:, None]) * fmask
+        x_0 = (x_0 + inp["init_prot_com"][:, None]) * fmask
+        h_0 = st["h"] * self.config.pharm_feat_norm_constant
+        out = {"pharm_x": x_0, "pharm_h": h_0,
+               "pharm_mask": inp["pharm_mask"].clone()}
+        if "traj_x" in st:
+            out["traj_x"] = st["traj_x"].clone()
+            out["traj_h"] = st["traj_h"].clone()
         return out
+
+    def _graphs_for(self, chain: "ReverseChain",
+                    unroll: int) -> "ChainGraphs":
+        """The captured graphs that run `chain`: the last ones, with
+        `chain` copied into their tensors, where its signature matches
+        theirs; else new ones, captured on a copy of `chain` (the old ones
+        are freed first)."""
+        key = (_spec(chain.inputs), _spec(chain.state),
+               chain.pocket_group_size, chain.n_steps, unroll,
+               tuple(t.data_ptr() for t in
+                     (*self.parameters(), *self.buffers())))
+        graphs = getattr(self, "_chain_graphs", None)
+        if graphs is not None and graphs.key == key:
+            graphs.load(chain)
+            return graphs
+        self._chain_graphs = None
+        graphs = ChainGraphs(self.chain_step, chain, unroll, key)
+        self._chain_graphs = graphs
+        return graphs
+
+
+@dataclasses.dataclass
+class ReverseChain:
+    """One reverse chain on the device: `inputs`, which the set-up makes
+    and every step reads (pharm_mask, fmask, prot_h, prot_mask,
+    init_prot_com, pp_edge at pocket-group level when grouped, pp_out,
+    step tables, pos_noise / feat_noise [T,B,F,.], coef [T,5] from
+    `_step_coefficients`, t [T]); `state`, which the steps advance in
+    place (x, h, prot_x, the step counter i [1] int64, and with a
+    trajectory traj_x / traj_h [T+1,B,F,.])."""
+
+    inputs: Dict[str, Any]
+    state: Dict[str, torch.Tensor]
+    pocket_group_size: int
+    n_steps: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.state["x"].device
+
+
+def _tensors(tree):
+    """The tensors of a nest of dicts, tuples and lists, in order."""
+    if torch.is_tensor(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def _spec(tree):
+    """The structure of a nest with every tensor as (shape, dtype,
+    device): what a captured graph is specialised to."""
+    if torch.is_tensor(tree):
+        return tuple(tree.shape), tree.dtype, tree.device
+    if isinstance(tree, dict):
+        return tuple((k, _spec(v)) for k, v in tree.items())
+    if isinstance(tree, (tuple, list)):
+        return type(tree).__name__, tuple(_spec(v) for v in tree)
+    return tree
+
+
+def _clone(tree):
+    """A copy of a nest with every tensor cloned."""
+    if torch.is_tensor(tree):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_clone(v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree
+
+
+# replays of captured chain graphs (`ChainGraphs.run`), as the kernels'
+# wrappers count their launches
+graph_replays = 0
+# the kernel launches and correction passes that those replays ran: each
+# replay adds what its graph's capture recorded in the wrappers' counts
+# (which count a launch where it is captured, not where it is replayed)
+replayed_launches = {"knn_select": 0, "pp_message": 0, "pp_message_bwd": 0,
+                     "corrections": 0}
+
+
+def _launch_counts() -> Dict[str, int]:
+    return {"knn_select": knn_select.launches,
+            "pp_message": pp_message.launches,
+            "pp_message_bwd": pp_message.bwd_launches,
+            "corrections": conv.corrections}
+
+
+class ChainGraphs:
+    """A reverse chain as CUDA graphs: `unroll` steps of `step` in one
+    graph, replayed T // unroll times, and the T mod unroll steps left in
+    a second graph that shares the first one's memory pool.
+
+    The chain is copied first, so the graphs read and write tensors of
+    their own (`chain`); `load` copies a later chain of the same signature
+    into them. Before capture one step runs eagerly on a side stream, so
+    first-use work (kernel builds, launch attributes, cuBLAS workspaces)
+    is done outside the graphs; the chain is then reloaded, so that step
+    leaves no trace. `capture_ms` is the host time of that step and the
+    captures, `pool_bytes` the device memory the captures reserved, and
+    `graphs` holds (graph, its replays a chain, the launches its capture
+    recorded in the wrappers' counts)."""
+
+    def __init__(self, step, chain: ReverseChain, unroll: int, key):
+        dev = chain.device
+        self.key = key
+        self.chain = dataclasses.replace(chain,
+                                         inputs=_clone(chain.inputs),
+                                         state=_clone(chain.state))
+        unroll = min(unroll, chain.n_steps)
+        self.graphs = []
+        t0 = time.perf_counter()
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                step(self.chain)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.load(chain)
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            full, tail = divmod(chain.n_steps, unroll)
+            pool = None
+            for steps, replays in ((unroll, full), (tail, 1)):
+                if not steps or not replays:
+                    continue
+                graph = torch.cuda.CUDAGraph()
+                before = _launch_counts()
+                with torch.cuda.graph(graph, pool=pool):
+                    for _ in range(steps):
+                        step(self.chain)
+                pool = graph.pool()
+                after = _launch_counts()
+                self.graphs.append(
+                    (graph, replays, {k: after[k] - before[k]
+                                      for k in after}))
+            torch.cuda.synchronize(dev)
+            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def load(self, chain: ReverseChain) -> None:
+        """Copy `chain`'s tensors (same signature) into the graphs' own."""
+        for dst, src in zip(_tensors((self.chain.inputs, self.chain.state)),
+                            _tensors((chain.inputs, chain.state))):
+            dst.copy_(src)
+
+    def run(self) -> None:
+        """The chain's T steps, from the loaded state: every graph's
+        replays, enqueued on the current stream without a host sync."""
+        global graph_replays
+        self.chain.state["i"].zero_()
+        for graph, replays, counts in self.graphs:
+            for _ in range(replays):
+                graph.replay()
+            graph_replays += replays
+            for k, n in counts.items():
+                replayed_launches[k] += n * replays

@@ -13,7 +13,9 @@ and, given the pp out-edges (`pp_out`), the pocket-copy correction of the
 second conv. Train mode keeps the full-width path, as in JAX. A sampling
 chain may also hoist the first conv's (timestep, pocket)-only work out
 of its loop into step tables (`precompute_sampling_tables`, JAX :52-123)
-and hand the denoiser one step's slice (`step_tables`).
+and hand the denoiser one step's slice (`step_tables`). The forward
+makes no host sync and reads no per-step Python value, so a sampling
+chain captures it in a CUDA graph (`diffusion.ChainGraphs`).
 """
 
 from __future__ import annotations
@@ -55,8 +57,13 @@ class SamplingTables(NamedTuple):
     pp_cnt: Optional[torch.Tensor]
     pf_table: Optional[torch.Tensor]
 
-    def step(self, i: int) -> tuple:
-        """Step i's slice of every table (views; None stays None)."""
+    def step(self, i) -> tuple:
+        """Step i's slice of every table (None stays None). `i` is an int
+        (views) or a [1] int64 tensor on the tables' device, read on the
+        device, so that a captured chain step reads the step it replays."""
+        if torch.is_tensor(i):
+            return tuple(None if a is None else a.index_select(0, i)[0]
+                         for a in self)
         return tuple(None if a is None else a[i] for a in self)
 
 

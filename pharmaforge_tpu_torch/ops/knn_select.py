@@ -26,6 +26,9 @@ Both entries launch the kernel for CUDA tensors (or raise) and run their
 plain version for CPU tensors. The plain versions are what the CPU tests
 run and what the kernel is held against on the card; the main path on the
 card never calls them. `launches` counts kernel launches of either entry.
+Inside a CUDA graph capture it counts the launch where it is captured,
+not where it is replayed: a captured sampling chain adds its replays'
+launches to `models/diffusion.py::replayed_launches`.
 """
 
 from __future__ import annotations

@@ -33,7 +33,10 @@ tables and the split weights (`split_weights`), views of the GVP
 parameters, so autograd routes each weight gradient back to its parameter.
 The edge geometry gets no gradient, as in the JAX backward kernel: an
 `x_dir` or `d_rbf` that requires grad raises. `launches` counts K2
-launches and `bwd_launches` K3 launches.
+launches and `bwd_launches` K3 launches. Inside a CUDA graph capture they
+count a launch where it is captured, not where it is replayed: a
+captured sampling chain adds its replays' launches to
+`models/diffusion.py::replayed_launches`.
 """
 
 from __future__ import annotations
@@ -383,6 +386,41 @@ def kernel_inputs(d: _Dims, pre_s, planes, edge, weights) -> tuple:
             rterm.contiguous(), dirterm.contiguous(),
             edge.d_rbf.to(dt).contiguous(), edge.x_dir.to(dt).contiguous(),
             _pack_weights(weights, dt))
+
+
+def message_agg_cost(pre_s, vh_planes, edge, layer_params, *,
+                     scalar_size: int, vector_size: int, rbf_dim: int,
+                     copies: int = 1, **_) -> Tuple[int, int, int]:
+    """(bytes, operations, edge rows) of one `fused_message_agg` call (its
+    arguments), counting what this call's data needs: the tables and the
+    weights read once, idx and mask of every group-level slot, x_dir and
+    d_rbf of the slots whose mask is set (a masked slot's geometry is
+    never used), and the fp32 outputs written once; two operations per
+    multiply-add of the edge terms over the valid group-level slots and
+    of the chain over the valid edge rows. The least work K2 can do: the
+    yardstick of its bound, and its share of a step's FLOPs where a
+    counter of PyTorch's ops cannot see the kernel. One host sync (the
+    valid slots)."""
+    s, v, r = scalar_size, vector_size, rbf_dim
+    b, p, _ = pre_s.shape
+    g, nd, k = edge.mask.shape
+    h0 = vh_planes[0].shape[-1]
+    w = split_weights(layer_params, s, r)
+    hj = w[7].shape[1] if len(w) > 7 else 0
+    n_j = (len(w) - 7) // 7
+    valid = int(edge.mask.sum())
+    n_bytes = (pre_s.numel() * pre_s.element_size()
+               + sum(a.numel() * a.element_size() for a in vh_planes)
+               + sum(a.numel() * a.element_size() for a in w)
+               + g * nd * k * (edge.idx.element_size()
+                               + edge.mask.element_size())
+               + valid * (3 * edge.x_dir.element_size()
+                          + r * edge.d_rbf.element_size())
+               + 4 * b * nd * (s + 3 * v))
+    macs = (h0 * s + s * v + 3 * h0 * v
+            + n_j * (3 * v * hj + s * s + hj * s + s * v + 3 * hj * v))
+    rows = valid * copies
+    return n_bytes, 2 * (macs * rows + (r * s + 3 * h0) * valid), rows
 
 
 class _FusedMessageAgg(torch.autograd.Function):

@@ -2,8 +2,10 @@
 
 Port of `pharmaforge_tpu/training/sampling.py::PocketSampler`: pockets are
 tiled into dense batches (`data.batch.tile_pocket`), chunked by
-`max_batch_size`, run through the reverse chain on the device, and split
-back into `SampledPharmacophore` objects that carry their pocket's
+`max_batch_size`, run through the reverse chain on the device (on the card
+as replays of CUDA graphs, `models/diffusion.py::ChainGraphs`: one device
+program per chain, no host round trip between steps), and split back
+into `SampledPharmacophore` objects that carry their pocket's
 receptor sites for the validity metric. Random draws come from an explicit
 `torch.Generator`. Grouped batches probe the pocket-copy correction's
 `pp_k_out` once per device call (`probe_pp_k_out`).
@@ -14,8 +16,10 @@ or an equal part of one (JAX sampling.py:178-192, 271-281: the copies of
 one pocket, or whole pockets of a stacked sweep), and otherwise runs
 whole on every rank. Every rank draws the chain's noise at the global
 batch shape and keeps its rows, so N ranks sample what one rank samples;
-the rows are gathered back on every rank. As in JAX, the pocket-copy
-correction is off with more than one rank.
+the rows are gathered back on every rank. Each rank captures its own
+chain on its own device; no collective runs inside a chain (the gather
+follows it). As in JAX, the pocket-copy correction is off with more than
+one rank.
 """
 
 from __future__ import annotations
@@ -126,6 +130,8 @@ class PocketSampler:
 
     def _run(self, batch, generator, com, group: int,
              visualize: bool = False) -> dict:
+        """One device call: the chain of `batch` (this rank's rows of it
+        inside a process group), its outputs on the host."""
         b = batch.batch_size
         local_group = self._rank_group(b, group)
         if not local_group:

@@ -1,6 +1,7 @@
 """PyTorch/CUDA port on the card: the CUDA kernels (K1's two entries, K2,
-K3) against their plain versions, the golden chain through K1, and one full-width
-training step on the card against the CPU.
+K3) against their plain versions, the golden chain through K1, the
+reverse chain as CUDA graph replays against its eager step loop, and one
+full-width training step on the card against the CPU.
 
 Every test here is marked `cuda` and skips without a card. The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -224,11 +225,13 @@ def test_golden_knn_chain_on_card(dev):
                               np.zeros((b, f, 6), np.float32), fm, px, ph, pm)
     noise = {"x_T": data["noise_x_T"], "h_T": data["noise_h_T"],
              "pos": data["noise_pos"], "feat": data["noise_feat"]}
-    before = ks.launches
+    chip_smoke.reset_launches()
     out = model.sample_given_receptor(
         batch, init_pharm_com=np.broadcast_to(data["init_com"], (b, 3)),
         visualize_trajectory=True, noise=noise)
-    assert ks.launches - before == cfg.n_timesteps
+    # captured: the chain's K1 launches are its graph replays'
+    assert chip_smoke.read_replayed()["knn_select"] == cfg.n_timesteps
+    assert chip_smoke.replay_counts()[0] == cfg.n_timesteps
     traj = out["traj_x"].cpu().numpy()
     for i, m in enumerate(sizes):
         assert np.abs(traj[1:, i, :m] - data[f"ref_frames_{i}"]).max() < 2e-3
@@ -310,3 +313,93 @@ def test_one_train_step_on_card_matches_cpu(dev):
         batch = next(iter(dm.train_dataloader(0)))
         print(cs.card_vs_cpu_step(model_from_config(config, device=dev),
                                   batch))
+
+
+def graph_case(dev, unroll: int = 1, seed: int = 0, **kw):
+    """A small dev-style model on the card (T=12, pf_k=4, 2 pockets x 3
+    rows, pocket-major), its batch and the chain's keywords with numpy
+    noise."""
+    from pharmaforge_tpu_torch.data.batch import concat_batches, tile_pocket
+    from pharmaforge_tpu_torch.models.diffusion import (
+        DiffusionConfig, PharmacophoreDiffusion)
+    cfg = DiffusionConfig(n_timesteps=12, vector_size=8, n_convs=2,
+                          n_hidden_scalars=32, n_message_gvps=2,
+                          n_update_gvps=1, n_noise_gvps=2,
+                          message_norm="mean", pf_k=4, pp_k_max=16,
+                          precision=1e-5, sample_scan_unroll=unroll, **kw)
+    model = PharmacophoreDiffusion(
+        cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(seed)
+    batch = concat_batches([tile_pocket(
+        rng.normal(scale=4.0, size=(40, 3)).astype(np.float32),
+        np.eye(11, dtype=np.float32)[rng.integers(0, 11, 40)],
+        rng.integers(3, 9, 3), max_prot=48) for _ in range(2)])
+    noise = chip_smoke.chain_noise(batch.batch_size, cfg.n_timesteps,
+                                   seed=seed)
+    return model, batch, dict(noise=noise, pocket_group_size=3,
+                              visualize_trajectory=True)
+
+
+@pytest.mark.parametrize("unroll", [1, 5, 12])
+def test_captured_chain_matches_eager_step_loop(dev, unroll):
+    model, batch, kw = graph_case(dev, unroll)
+    want = chip_smoke.eager_chain(model, batch, **kw)
+    chip_smoke.reset_launches()
+    got = model.sample_given_receptor(batch, **kw)
+    torch.cuda.synchronize()
+    u = min(unroll, 12)
+    assert chip_smoke.replay_counts()[0] == 12 // u + int(12 % u > 0)
+    assert chip_smoke.read_replayed()["knn_select"] == 12
+    # a first call: the warm-up step, then U steps and the T mod U left
+    # captured
+    assert ks.launches == 1 + u + 12 % u
+    for key in ("pharm_x", "pharm_h", "traj_x", "traj_h"):
+        err = float((got[key] - want[key]).abs().max())
+        assert err < 2e-3, (key, err)
+
+
+def test_kept_graphs_serve_a_later_chain(dev):
+    model, batch, kw = graph_case(dev)
+    model.sample_given_receptor(batch, **kw)
+    later = dict(kw, noise=chip_smoke.chain_noise(batch.batch_size, 12,
+                                                  seed=9))
+    graphs = model._chain_graphs
+    chip_smoke.reset_launches()
+    got = model.sample_given_receptor(batch, **later)
+    torch.cuda.synchronize()
+    assert model._chain_graphs is graphs and ks.launches == 0
+    assert chip_smoke.read_replayed()["knn_select"] == 12
+    want = chip_smoke.eager_chain(model, batch, **later)
+    for key in ("pharm_x", "traj_x"):
+        assert float((got[key] - want[key]).abs().max()) < 2e-3, key
+
+
+def test_frozen_step_index_fails_on_card(dev):
+    model, batch, kw = graph_case(dev)
+    want = chip_smoke.eager_chain(model, batch, **kw)["pharm_x"]
+    fresh, _, _ = graph_case(dev)
+    with chip_smoke.step_index_frozen():
+        got = fresh.sample_given_receptor(batch, **kw)["pharm_x"]
+    miss = torch.nan_to_num((got - want).abs(), nan=np.inf).max()
+    assert float(miss) > 10 * 2e-3
+
+
+def test_a_failed_capture_raises(dev):
+    """A step that syncs with the host cannot be captured: the chain
+    raises, and there is no eager retry. (Last in the file: the process
+    has seen a capture fail.)"""
+    from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
+    model, batch, kw = graph_case(dev)
+    real = PharmacophoreDiffusion.chain_step
+
+    def syncing(self, chain):
+        real(self, chain)
+        float(chain.state["x"].sum())
+
+    PharmacophoreDiffusion.chain_step = syncing
+    try:
+        with pytest.raises(RuntimeError):
+            model.sample_given_receptor(batch, **kw)
+    finally:
+        PharmacophoreDiffusion.chain_step = real
+    assert getattr(model, "_chain_graphs", None) is None
