@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # needs one CUDA card
     python3 chip_smoke.py --profile  # also traces chains (dev, full scale
-                                     # with and without the correction) and
-                                     # a train step with torch.profiler
+                                     # with and without the correction), a
+                                     # train step and a captured train call
+                                     # with torch.profiler
     python3 chip_smoke.py --profile-only DIR  # only the build, those
                                      # traces and the train phase; each
                                      # kernel table by name into DIR
@@ -12,7 +13,7 @@
 Phases, one line each, then a `wall:` line with the phase's seconds; any
 failure raises and the script exits non-zero. They run in the order build,
 preprocess, knn, golden, graphs, main, pp, fullscale, fullwidth, tables,
-ppbwd, train, dist, cli, bench.
+ppbwd, trainstep, train, dist, cli, bench.
 
 Every sampling chain on the card runs as CUDA graph replays
 (`models/diffusion.py::ChainGraphs`: a warm-up step, U =
@@ -24,6 +25,11 @@ captured launches x its replays), which the phases hold to exactly
 `expected_launches`, with the replays counted (`chain_replays`) and, for a
 call on kept graphs, nothing launched outside them. Checks that copy a
 step's state to the host drive the eager step loop (`eager_chain`).
+Every optimizer step on the card runs inside a replayed CUDA graph too
+(`training/train_state.py::TrainGraphs`, `steps_per_call` steps a
+replay): a train call's launches are its graph's captured launches x its
+replay (`read_train_replayed`), and the wrappers count only the warm-up
+step and the capture of a call that builds its graph (`check_calls`).
 
 1. build     -- compile every CUDA kernel of the sampling and training
                 paths from `pharmaforge_tpu_torch/csrc` (nvcc, sm_90a; one
@@ -123,21 +129,37 @@ step's state to the host drive the eager step loop (`eager_chain`).
                 tiles, K=1, an odd batch; device times of K3 (graph
                 replay), of K2 + K3 forward and backward, of the plain
                 version's backward, and the bound;
-8. train     -- `Trainer.fit` at full scale: the reference-size model in
-                fp32 with dropout 0.1 (bench.py:456-465) on a synthetic
-                3 x 64-pocket dataset (200-230 atoms, seed 11), batch 32,
-                two epochs with one sampling evaluation, then a third
-                epoch resumed from 'last': exactly 1 K1, 2 K2 and 2 K3
-                launches per optimizer step, finite losses, a bit-equal
-                checkpoint round trip, train steps/s; and one fp32 step at
-                dropout 0 on the card and on the CPU from the same weights
-                and injected noise (loss within rtol 1e-5, gradients per
-                leaf within 2e-4 max|b| + 2e-5);
+   trainstep -- the train step as one device program at the bench's
+                full-scale train workload (the train cell's model, B=32
+                pockets of 230 atoms in 256 slots, fp32, dropout 0.1, K=8
+                steps a call): a captured call against K eager steps from
+                the same weights, Adam state and generator (losses rtol
+                1e-5, weight leaves 2e-4 max|b| + 2e-5, generators equal),
+                building its graph and on the kept graph; again at K=1 and
+                at accumulate 3 from phases 0 and 2; the planted faults
+                `frozen_lr` and `stale_batches` at least 10 x the tolerance
+                away; exactly 1 K1, 2 K2, 2 K3 a step replayed; train
+                steps/s eager against captured in alternating turns,
+                capture ms and graph pool bytes (`phase_trainstep`);
+8. train     -- `Trainer.fit` at full scale, 8 steps a call: the
+                reference-size model in fp32 with dropout 0.1
+                (bench.py:456-465) on a synthetic 3 x 144-pocket dataset
+                (200-230 atoms, seed 11), batch 32: three epochs without a
+                stop, then two epochs with one sampling evaluation and a
+                third resumed from 'last': every call a graph replay with
+                exactly 1 K1, 2 K2 and 2 K3 a step, calls of 8 and
+                leftovers, finite losses, a bit-equal checkpoint round
+                trip, the resumed epoch against the run without a stop,
+                train steps/s; and one fp32 step at dropout 0 on the card
+                and on the CPU from the same weights and injected noise
+                (loss within rtol 1e-5, gradients per leaf within 2e-4
+                max|b| + 2e-5);
 9. cli       -- the port's three CLIs through `main(argv)` in this process,
                 the reference-size model (`cli_config`): the train CLI
                 writes its synthetic set (3 x 32 pockets) and fits one
                 epoch, then resumes for a second (exactly 1 K1, 2 K2 and 2
-                K3 launches per optimizer step, the step count going on,
+                K3 a step as each train call's graph replays them, the
+                step count going on,
                 config.yaml read back as the merged config); the run is
                 exported as a reference `.ckpt` whose weights read back
                 bit-equal; the test CLI samples 4 validation pockets x 8 in
@@ -167,15 +189,19 @@ step's state to the host drive the eager step loop (`eager_chain`).
                 train phase's model on 3 x 24 synthetic pockets, then one
                 `sample_stacked` (the full-scale model in fp32 at T=50, 2
                 pockets x 8), without a process group, as one NCCL rank
-                and as two gloo ranks sharing the card: every rank
-                exactly 1 K1, 2 K2 and 2 K3 launches a step, weights
+                and as two gloo ranks sharing the card: the train steps
+                captured without a group and on the NCCL rank (the
+                all-reduce inside the graph), eager on the gloo ranks
+                (printed); every rank exactly 1 K1, 2 K2 and 2 K3 a step,
+                weights
                 within the fp32 train-step tolerance of the no-group run's
                 (NCCL bit-equality printed), rank 0 alone writing, the
                 samples within 2e-3, each rank's chain in its own graphs'
                 T replays;
 12. bench    -- `python -m pharmaforge_tpu_torch.bench --repeats 2` in
                 this process (`bench.main`): its JSON line printed, every
-                key of BENCH_KEYS, rates positive, MFU at most 1.
+                key of BENCH_KEYS, rates positive, MFU at most 1, the train
+                workloads' steps captured (train graph replays counted).
 
 Then the card's name and power limit, the `kernels` JSON line, and the
 final `{"ok": true, ...}` line. Without CUDA it exits 1 and prints no
@@ -643,14 +669,16 @@ def kernel_counters():
 
 def reset_launches() -> None:
     """Every kernel launch count, the correction-pass count and the chain
-    graphs' replay counts to 0."""
+    and train graphs' replay counts to 0."""
     from pharmaforge_tpu_torch.models import conv, diffusion
     for mod, attr in kernel_counters().values():
         setattr(mod, attr, 0)
     conv.corrections = 0
     diffusion.graph_replays = 0
+    diffusion.train_graph_replays = 0
     for key in diffusion.replayed_launches:
         diffusion.replayed_launches[key] = 0
+        diffusion.train_replayed_launches[key] = 0
 
 
 def read_launches() -> dict:
@@ -665,6 +693,14 @@ def read_replayed() -> dict:
     launches x its replays, per kernel."""
     from pharmaforge_tpu_torch.models import diffusion
     return {name: diffusion.replayed_launches[name] for name in KERNELS}
+
+
+def read_train_replayed() -> dict:
+    """The launches that train graphs' replays ran: each graph's captured
+    launches x its replays, per kernel."""
+    from pharmaforge_tpu_torch.models import diffusion
+    return {name: diffusion.train_replayed_launches[name]
+            for name in KERNELS}
 
 
 def replay_counts() -> tuple:
@@ -2249,9 +2285,11 @@ def train_config(data_dir: str, max_epochs: int = 2, dropout: float = 0.1,
     builds it (bench.py:456-465): n_convs=4, 128 scalars, 16 vectors,
     3/2/4 message/update/noise GVPs, pf_k=5, pp_k_max=16, dropout 0.1,
     endpoint parameterization, fp32, T=1000; batch 32, validation on
-    split 2, one sampling evaluation in two epochs (8 pockets x 2)."""
+    split 2, one sampling evaluation in two epochs (8 pockets x 2), 8
+    optimizer steps a call (`steps_per_call`, configs/dev.yml's)."""
     return {
         "training": {"batch_size": batch_size, "validation_splits": [2],
+                     "steps_per_call": 8,
                      "trainer_args": {"max_epochs": max_epochs},
                      "evaluation": {"pharms_per_pocket": 2, "n_pockets": 8,
                                     "sample_interval": 1.0,
@@ -2282,20 +2320,69 @@ def train_config(data_dir: str, max_epochs: int = 2, dropout: float = 0.1,
     }
 
 
-def count_steps(trainer, per_step: list) -> None:
-    """Wrap `trainer.train_step` so each optimizer step's kernel launches
-    (the counts just after it less those just before it) go to
-    `per_step`."""
-    step = trainer.train_step
+def scaled(counts: dict, n: int) -> dict:
+    return {k: v * n for k, v in counts.items()}
 
-    def counted(batch):
-        before = read_launches()
-        out = step(batch)
-        after = read_launches()
-        per_step.append({k: after[k] - before[k] for k in after})
-        return out
 
-    trainer.train_step = counted
+def record_call(trainer, real, batches, calls: list):
+    """`real(batches)`, one train call of `trainer`, with its record
+    appended to `calls`: its steps, whether it ran captured and built a
+    train graph, the launches its graphs replayed
+    (`read_train_replayed`) and those the wrappers counted (a built
+    graph's warm-up step and capture, or eager steps), and its host
+    wall."""
+    from pharmaforge_tpu_torch.training.train_state import captured
+    kept = {id(g) for g in trainer.optimizer.train_graphs.values()}
+    before, rep_before = read_launches(), read_train_replayed()
+    t0 = time.perf_counter()
+    out = real(batches)
+    wall = time.perf_counter() - t0
+    after, rep_after = read_launches(), read_train_replayed()
+    calls.append({
+        "steps": len(batches), "wall": wall,
+        "captured": captured(trainer.device),
+        "built": any(id(g) not in kept
+                     for g in trainer.optimizer.train_graphs.values()),
+        "launched": {k: after[k] - before[k] for k in after},
+        "replayed": {k: rep_after[k] - rep_before[k] for k in rep_after}})
+    return out
+
+
+def count_calls(trainer, calls: list) -> None:
+    """Wrap `trainer.train_call` so each call's record (`record_call`)
+    goes to `calls`."""
+    real = trainer.train_call
+    trainer.train_call = lambda batches: record_call(trainer, real, batches,
+                                                     calls)
+
+
+def check_calls(name: str, calls: list) -> int:
+    """Every call ran exactly 1 K1, 2 K2 and 2 K3 a step: where captured,
+    as its graph's captured launches x its replay, with nothing launched
+    outside the replay unless the call built its graph (then the warm-up
+    step and the K captured steps); where eager, launched by the
+    wrappers. Returns the steps."""
+    zero = dict.fromkeys(KERNELS, 0)
+    for c in calls:
+        k = c["steps"]
+        if c["captured"]:
+            want = (scaled(PER_STEP, k + 1) if c["built"] else zero,
+                    scaled(PER_STEP, k))
+        else:
+            want = scaled(PER_STEP, k), zero
+        check((c["launched"], c["replayed"]) == want,
+              f"{name}: a call of {k} steps (captured {c['captured']}, "
+              f"built {c['built']}) launched {c['launched']} and replayed "
+              f"{c['replayed']}, expected {want}")
+    return sum(c["steps"] for c in calls)
+
+
+def calls_summary(calls: list) -> str:
+    """The calls' step counts, captured and built, in words."""
+    sizes = [c["steps"] for c in calls]
+    return (f"{len(calls)} calls of {sorted(set(sizes))} steps "
+            f"({sum(sizes)} steps; {sum(c['captured'] for c in calls)} "
+            f"captured, {sum(c['built'] for c in calls)} built a graph)")
 
 
 def grads_close(got: dict, want: dict) -> float:
@@ -2348,16 +2435,65 @@ def card_vs_cpu_step(model, batch, rows: int = 8) -> str:
             f"bound 2e-4 max|b| + 2e-5")
 
 
+def fit_records(run_dir) -> list:
+    return [json.loads(ln) for ln in
+            (Path(run_dir) / "metrics.jsonl").read_text().splitlines()]
+
+
+def data_rng_states(dm) -> tuple:
+    """The numpy generator states of `dm`'s train and validation datasets
+    (their pharmacophore subsampling draws)."""
+    return tuple(ds._rng.bit_generator.state
+                 for ds in (dm.train_dataset, dm.val_dataset))
+
+
+def keep_data_rng(dm, epoch: int, kept: dict) -> None:
+    """Keep `dm`'s dataset generator states as the fit's epoch `epoch`
+    (0-based, Trainer seed 0) opens its loader, in `kept["states"]`."""
+    real = dm.train_dataloader
+
+    def loader(seed: int = 0):
+        if seed == epoch:
+            kept["states"] = data_rng_states(dm)
+        return real(seed)
+
+    dm.train_dataloader = loader
+
+
+def start_data_rng(dm, states: tuple) -> None:
+    """Give `dm`'s datasets `states` as `setup` makes them."""
+    real = dm.setup
+
+    def setup(stage: str = "fit"):
+        real(stage)
+        for ds, state in zip((dm.train_dataset, dm.val_dataset), states):
+            ds._rng.bit_generator.state = state
+
+    dm.setup = setup
+
+
 def phase_train(dev, profile: bool = False, config_fn=train_config,
-                samples_per_split: int = 64, n_prot_range=(200, 230)) -> dict:
-    """`Trainer.fit` at full scale on the card: 2 epochs, then a third
-    resumed from 'last'. Every optimizer step launches K1 once and K2 and
-    K3 twice; losses are finite; the checkpoint restores bit-equal weights;
-    train steps/s over the timed steps (the first step of each run is the
-    warm-up; validation and sampling fall between steps and are not
-    timed). Returns the launch counts of the 2-epoch fit: the wrappers'
-    (eager steps and validation, and the sampling evaluation's captures)
-    and its sampling chain's graph replays'."""
+                samples_per_split: int = 144, n_prot_range=(200, 230)
+                ) -> tuple:
+    """`Trainer.fit` at full scale on the card, 8 steps a call: 2 epochs
+    without a stop (one sampling evaluation); then, from the same seed,
+    1 epoch and the second resumed from 'last'. Every call replays its
+    CUDA graph: exactly 1 K1, 2 K2 and 2 K3 a step as captured launches x
+    replays, nothing launched outside the replays but a graph's warm-up
+    step and capture (`check_calls`); each epoch one call of 8 steps and
+    the leftover singly; losses finite; the checkpoint restores bit-equal
+    weights; the resumed epoch's steps agree with the same steps of the
+    run without a stop, given that run's dataset generator states at the
+    epoch's start (the datasets' pharmacophore subsampling draws from a
+    process-lived numpy generator, as in the JAX package, which a
+    checkpoint does not keep): losses within rtol 1e-4 (the dist phase's
+    metric tolerance), weights at the fp32 train-step tolerance per leaf
+    (bit-equality printed); train steps/s over the calls that built no
+    graph (a call's wall over its steps; validation and sampling fall
+    between calls). Returns the launch counts of the 2-epoch fit: the
+    wrappers' (its graphs' warm-up steps and captures, validation, the
+    sampling evaluation's capture), its sampling chain's graph replays'
+    and its train graphs' replays'."""
     import tempfile
     from pharmaforge_tpu_torch.config.load_from_config import (
         data_module_from_config, model_from_config)
@@ -2372,80 +2508,361 @@ def phase_train(dev, profile: bool = False, config_fn=train_config,
             f"{tmp}/data", n_splits=3, samples_per_split=samples_per_split,
             n_prot_range=n_prot_range, seed=11)
         gen_s = time.perf_counter() - t0
-        config = config_fn(str(data))
-        dm = data_module_from_config(config)
+        config, config1 = (config_fn(str(data)),
+                           config_fn(str(data), max_epochs=1))
+        dm, kept = data_module_from_config(config), {}
+        keep_data_rng(dm, 1, kept)
         model = model_from_config(config, device=dev)
-        trainer = Trainer(config, f"{tmp}/run", device=dev)
-        per_step: list = []
-        count_steps(trainer, per_step)
+        trainer = Trainer(config, f"{tmp}/straight", device=dev)
+        fit_calls: list = []
+        count_calls(trainer, fit_calls)
         reset_launches()
         t0 = time.perf_counter()
         trainer.fit(model, dm)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         fit_launches, fit_replayed = read_launches(), read_replayed()
+        fit_train_replayed = read_train_replayed()
         check(replay_counts()[0] > 0,
               f"train: the sampling evaluation ran no graph replay")
-        check(len(per_step) == trainer.global_step > 0,
-              f"train: {len(per_step)} counted steps, global step "
+        check(check_calls("train", fit_calls) == trainer.global_step > 0,
+              f"train: {calls_summary(fit_calls)}, global step "
               f"{trainer.global_step}")
-        check(all(c == PER_STEP for c in per_step),
-              f"train: launches per optimizer step {per_step}, expected "
-              f"{PER_STEP}")
+        sizes = sorted({c["steps"] for c in fit_calls})
+        check(sizes[-1] == 8 and len(sizes) > 1,
+              f"train: calls of {sizes} steps, expected calls of 8 and "
+              f"leftovers")
         slots = {int(dm.train_dataset.prot_size(i))
                  for i in range(len(dm.train_dataset))}
-        records = [json.loads(ln) for ln in
-                   Path(f"{tmp}/run/metrics.jsonl").read_text().splitlines()]
+        records = fit_records(f"{tmp}/straight")
         losses = [r[k] for r in records for k in r if "loss" in k]
         check(bool(losses) and bool(np.isfinite(losses).all()),
               "train: non-finite or missing losses")
         validity = [r["validity"] for r in records if "validity" in r]
         check(len(validity) == 1, f"train: {len(validity)} sampling "
                                   f"evaluations in 2 epochs, expected 1")
+
+        first = Trainer(config1, f"{tmp}/run", device=dev)
+        first_calls: list = []
+        count_calls(first, first_calls)
+        first_model = model_from_config(config1, device=dev)
+        first.fit(first_model, data_module_from_config(config1))
         state, meta = RunCheckpointer(f"{tmp}/run").restore("last")
         check(all(torch.equal(state["model"][k], v.cpu())
-                  for k, v in model.state_dict().items()),
+                  for k, v in first_model.state_dict().items()),
               "train: the checkpoint does not restore bit-equal weights")
-        cmp = card_vs_cpu_step(model, next(iter(dm.train_dataloader(0))))
-
-        config3 = config_fn(str(data), max_epochs=3)
-        resumed = Trainer(config3, f"{tmp}/run", device=dev)
-        count_steps(resumed, per_step)
-        resumed.fit(model_from_config(config3, device=dev, seed=1),
-                    data_module_from_config(config3), resume_from="last")
-        check(resumed.epoch == 3 and resumed.global_step
-              == 3 * trainer.global_step // 2,
+        cmp = card_vs_cpu_step(first_model,
+                               next(iter(dm.train_dataloader(0))))
+        resumed = Trainer(config, f"{tmp}/run", device=dev)
+        resumed_calls: list = []
+        count_calls(resumed, resumed_calls)
+        resumed_model = model_from_config(config, device=dev, seed=1)
+        dm_resumed = data_module_from_config(config)
+        start_data_rng(dm_resumed, kept["states"])
+        resumed.fit(resumed_model, dm_resumed, resume_from="last")
+        check(resumed.epoch == 2
+              and resumed.global_step == trainer.global_step,
               f"train: resumed to epoch {resumed.epoch}, step "
               f"{resumed.global_step}")
-        check(all(c == PER_STEP for c in per_step),
-              f"train: launches per optimizer step {per_step}")
-        timed = trainer.step_seconds[1:] + resumed.step_seconds[1:]
-        rates = sorted(1.0 / s for s in timed)
+        check_calls("train first epoch", first_calls)
+        check_calls("train resumed", resumed_calls)
+        # the resumed epoch against the same steps without a stop
+        got = {r["step"]: r["train total loss"]
+               for r in fit_records(f"{tmp}/run")
+               if "train total loss" in r and r["step"] > first.global_step}
+        want = {r["step"]: r["train total loss"] for r in records
+                if "train total loss" in r and r["step"] > first.global_step}
+        check(sorted(got) == sorted(want) and bool(want),
+              f"train: resumed steps {sorted(got)}, without a stop "
+              f"{sorted(want)}")
+        loss_rel = max(abs(got[k] - want[k]) / abs(want[k]) for k in want)
+        check(loss_rel <= 1e-4, f"train: resumed losses {loss_rel:.3e} "
+                                f"from those without a stop")
+        resume_worst, resume_equal = weights_close(
+            {k: v.cpu() for k, v in resumed_model.state_dict().items()},
+            {k: v.cpu() for k, v in model.state_dict().items()})
+        check(resume_worst <= 1, f"train: resumed weights at "
+                                 f"{resume_worst:.3f} of the train-step "
+                                 f"bound from those without a stop")
+        timed_calls = [c for c in fit_calls + first_calls + resumed_calls
+                       if not c["built"]]
+        rates = sorted(c["steps"] / c["wall"] for c in timed_calls)
         if profile:
             batch = next(iter(dm.train_dataloader(0)))
-            resumed.train_step(batch)                       # warm-up
+            resumed.train_call([batch])          # a kept graph of 1 step
             torch.cuda.synchronize()
-            profile_run("profile train: one optimizer step (B=32)",
-                        lambda: resumed.train_step(batch), "train")
+            profile_run("profile train: one captured optimizer step (B=32)",
+                        lambda: resumed.train_call([batch]), "train")
     losses_train = [r["train total loss"] for r in records
                     if "train total loss" in r]
     print(f"train: Trainer.fit on {card()}: {trainer.global_step} steps in "
-          f"2 epochs + {resumed.global_step - trainer.global_step} resumed "
-          f"(epoch 3 from 'last'), batch {trainer.batch_size}, pocket slots "
+          f"2 epochs, then {first.global_step} in 1 epoch and "
+          f"{resumed.global_step - first.global_step} resumed (epoch 2 "
+          f"from 'last'), batch {trainer.batch_size}, pocket slots "
           f"{sorted({max(64, -(-n // 64) * 64) for n in slots})} (atoms "
-          f"{min(slots)}-{max(slots)}); train steps/s over "
-          f"{len(timed)} timed steps median {float(np.median(rates)):.3f}, "
-          f"min {rates[0]:.3f}, max {rates[-1]:.3f}; fit wall {fit_s:.1f} s "
-          f"(validation and one sampling evaluation included; validity "
-          f"{validity[0]:.3f}); train total loss {losses_train[0]:.4f} -> "
-          f"{losses_train[-1]:.4f}, val {meta['monitored']:.4f}; launches "
-          f"per optimizer step {PER_STEP} in all {len(per_step)} steps; "
-          f"the 2-epoch fit launched {fit_launches} and its sampling "
-          f"evaluation's graphs replayed {fit_replayed}; checkpoint round "
-          f"trip "
-          f"bit-equal; {cmp}; dataset generated in {gen_s:.1f} s",
+          f"{min(slots)}-{max(slots)}); the 2-epoch fit "
+          f"{calls_summary(fit_calls)}, resumed "
+          f"{calls_summary(resumed_calls)}; train steps/s over "
+          f"{len(timed_calls)} calls on kept graphs median "
+          f"{float(np.median(rates)):.3f}, min {rates[0]:.3f}, max "
+          f"{rates[-1]:.3f}; fit wall {fit_s:.1f} s (validation and one "
+          f"sampling evaluation included; validity {validity[0]:.3f}); "
+          f"train total loss {losses_train[0]:.4f} -> "
+          f"{losses_train[-1]:.4f}, val {meta['monitored']:.4f} after "
+          f"epoch 1; {PER_STEP} a step in every call as captured launches "
+          f"x replays; the 2-epoch fit's wrappers counted {fit_launches} "
+          f"(graphs' warm-up steps and captures, validation, the sampling "
+          f"evaluation's capture), its train graphs replayed "
+          f"{fit_train_replayed} and its sampling evaluation's graphs "
+          f"{fit_replayed}; checkpoint round trip bit-equal; the resumed "
+          f"epoch against 2 epochs without a stop: losses max rel "
+          f"{loss_rel:.3e} (tolerance 1e-4), weights at "
+          f"{resume_worst:.4f} of the train-step bound (bit-equal "
+          f"{resume_equal}); {cmp}; dataset generated in {gen_s:.1f} s",
           flush=True)
-    return fit_launches, fit_replayed
+    return fit_launches, fit_replayed, fit_train_replayed
+
+
+# -------------------------------------------------------------- trainstep
+
+def train_batches(n: int, batch_size: int = 32, atoms: int = 230,
+                  slots: int = 256, seed: int = 0) -> list:
+    """`n` training batches of `batch_size` synthetic pockets of `atoms`
+    atoms in `slots` slots, 4-8 pharmacophore centres each, as `bench.py`
+    makes its train batch."""
+    from pharmaforge_tpu_torch.data.batch import collate_complexes
+    from pharmaforge_tpu_torch.data.synthetic import make_synthetic_pocket
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        samples = []
+        for _ in range(batch_size):
+            px, elem = make_synthetic_pocket(rng, np.zeros(3), atoms)
+            px = px.astype(np.float32)
+            n_ph = int(rng.integers(4, 9))
+            samples.append({
+                "prot_x": px, "prot_h": np.eye(11, dtype=np.float32)[elem],
+                "pharm_x": px[:n_ph] * 0.3,
+                "pharm_h": np.eye(6, dtype=np.float32)[
+                    rng.integers(0, 6, n_ph)]})
+        out.append(collate_complexes(samples, max_prot=slots))
+    return out
+
+
+def train_setup(model, accumulate: int = 1, opt_cls=None) -> tuple:
+    """(a copy of `model`, its Adam at 1e-3 with `bench.py`'s weight decay,
+    a generator on its device seeded 1): one side of a comparison."""
+    from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
+    from pharmaforge_tpu_torch.training.optim import Adam
+    m = PharmacophoreDiffusion(model.config, device=model.device)
+    m.load_state_dict(model.state_dict())
+    opt = (opt_cls or Adam)(m.parameters(), 1e-3, weight_decay=1e-12,
+                            accumulate=accumulate)
+    return m, opt, torch.Generator(device=m.device).manual_seed(1)
+
+
+def eager_call(setup, batches: list, lr: float) -> np.ndarray:
+    """`batches` as eager steps of `setup` at `lr`: the train loss of
+    each."""
+    from pharmaforge_tpu_torch.data.batch import stack_batches
+    from pharmaforge_tpu_torch.training.train_state import eager_train_steps
+    model, opt, gen = setup
+    opt.set_lr(lr)
+    names, out = eager_train_steps(model, opt, stack_batches(batches), gen)
+    return out[:, names.index("train total loss")].cpu().numpy()
+
+
+def captured_train_call(setup, batches: list, lr: float) -> np.ndarray:
+    """`batches` as one `multi_train_step` call of `setup` at `lr` (a CUDA
+    graph replay on the card): the train loss of each step."""
+    from pharmaforge_tpu_torch.data.batch import stack_batches
+    from pharmaforge_tpu_torch.training.train_state import multi_train_step
+    model, opt, gen = setup
+    return multi_train_step(model, opt, stack_batches(batches), gen,
+                            lr)["train total loss"]
+
+
+def train_miss(eager, e_loss, graphed, g_loss) -> tuple:
+    """How far a captured call's result lies from the eager steps', in
+    units of the train-step tolerance: (worst ratio over the per-step
+    losses at rtol 1e-5 and the weight leaves at 2e-4 max|b| + 2e-5,
+    a non-finite miss infinite; whether the generators' states are
+    equal)."""
+    loss = float(np.max(np.abs(g_loss - e_loss)
+                        / (1e-5 * np.abs(e_loss))))
+    leaves, _ = weights_close(
+        {k: v.cpu() for k, v in graphed[0].state_dict().items()},
+        {k: v.cpu() for k, v in eager[0].state_dict().items()})
+    worst = max(loss, leaves)
+    return (worst if np.isfinite(worst) else float("inf"),
+            torch.equal(eager[2].get_state(), graphed[2].get_state()))
+
+
+def frozen_lr_adam():
+    """A planted fault: an Adam whose learning rate is a Python float in
+    the inner optimizer's parameter group, which a capture bakes in."""
+    from pharmaforge_tpu_torch.training.optim import Adam
+
+    class FrozenLrAdam(Adam):
+        def set_lr(self, lr):
+            for group in self.opt.param_groups:
+                group["lr"] = float(lr)
+
+    return FrozenLrAdam
+
+
+@contextlib.contextmanager
+def stale_batches(setup):
+    """A planted fault inside the block: `setup`'s kept train graphs
+    replay without the new batches copied in."""
+    kept = list(setup[1].train_graphs.values())
+    for graphs in kept:
+        graphs.load = lambda *args: None
+    try:
+        yield
+    finally:
+        for graphs in kept:
+            del graphs.load
+
+
+def trainstep_model(dev, cfg=None):
+    """The train cell's model (`train_config`: n_convs=4, 128 scalars, 16
+    vectors, fp32, dropout 0.1), random weights from seed 0."""
+    from pharmaforge_tpu_torch.models.diffusion import (
+        DiffusionConfig, PharmacophoreDiffusion)
+    cfg = cfg or DiffusionConfig.from_config(train_config(""))
+    return PharmacophoreDiffusion(
+        cfg, device=dev, generator=torch.Generator().manual_seed(0))
+
+
+def trainstep_cases(dev, model, batches: list, k: int) -> tuple:
+    """The captured train call against eager steps (`train_miss`) for each
+    case, and the two planted faults. Returns (case lines, fault misses,
+    the (eager, captured) pair of K-step setups, its graph kept; after the
+    `stale_batches` fault their weights differ)."""
+    from pharmaforge_tpu_torch.models import diffusion
+    lines, faults = [], {}
+
+    def compare(name, eager, graphed, calls, want_counts=True):
+        for i, (bs, lr) in enumerate(calls):
+            kept = {id(g) for g in graphed[1].train_graphs.values()}
+            reset_launches()
+            e = eager_call(eager, bs, lr)
+            before = read_launches()
+            g = captured_train_call(graphed, bs, lr)
+            torch.cuda.synchronize()
+            launched = {n: read_launches()[n] - before[n] for n in KERNELS}
+            built = any(id(x) not in kept
+                        for x in graphed[1].train_graphs.values())
+            if want_counts:
+                want = (scaled(PER_STEP, len(bs) + 1) if built
+                        else dict.fromkeys(KERNELS, 0),
+                        scaled(PER_STEP, len(bs)), 1)
+                got = (launched, read_train_replayed(),
+                       diffusion.train_graph_replays)
+                check(got == want, f"trainstep {name} call {i}: launched, "
+                                   f"replayed, replays {got}, expected "
+                                   f"{want}")
+            worst, gen_equal = train_miss(eager, e, graphed, g)
+            check(worst <= 1 and gen_equal,
+                  f"trainstep {name} call {i}: at {worst:.3f} of the "
+                  f"train-step tolerance, generators equal {gen_equal}")
+            new = [x for x in graphed[1].train_graphs.values()
+                   if id(x) not in kept]
+            made = (f"built: capture {new[0].capture_ms:.1f} ms, pool "
+                    f"{new[0].pool_bytes} B" if new else "kept")
+            lines.append(f"{name} call {i} ({len(bs)} steps, lr {lr:g}, "
+                         f"phase {graphed[1].mini_step} after, graph "
+                         f"{made}): {worst:.4f} of the tolerance, "
+                         f"generators equal")
+
+    pair = train_setup(model), train_setup(model)
+    compare(f"K={k}", *pair, [(batches[:k], 1e-3), (batches[k:2 * k],
+                                                     1e-3)])
+    one = train_setup(model), train_setup(model)
+    compare("K=1", *one, [(batches[:1], 1e-3), (batches[1:2], 1e-3)])
+    del one
+    acc = train_setup(model, 3), train_setup(model, 3)
+    compare(f"accumulate 3, K={k}", *acc,
+            [(batches[:k], 1e-3), (batches[k:2 * k], 1e-3)])
+    del acc
+    # the planted faults: each must miss by at least 10 x the tolerance
+    frozen = train_setup(model), train_setup(model, opt_cls=frozen_lr_adam())
+    compare("frozen_lr capture", *frozen, [(batches[:k], 1e-3)],
+            want_counts=False)
+    e = eager_call(frozen[0], batches[k:2 * k], 1e-4)
+    g = captured_train_call(frozen[1], batches[k:2 * k], 1e-4)
+    faults["frozen_lr"] = train_miss(frozen[0], e, frozen[1], g)[0]
+    del frozen
+    # the K-step pair's graph holds the second call's batches
+    with stale_batches(pair[1]):
+        e = eager_call(pair[0], batches[:k], 1e-3)
+        g = captured_train_call(pair[1], batches[:k], 1e-3)
+    faults["stale_batches"] = train_miss(pair[0], e, pair[1], g)[0]
+    for name, miss in faults.items():
+        check(miss >= 10, f"trainstep: the planted fault {name} missed by "
+                          f"only {miss:.3f} x the tolerance")
+    return lines, faults, pair
+
+
+def phase_trainstep(dev, profile: bool = False, cfg=None,
+                    batch_size: int = 32, atoms: int = 230,
+                    slots: int = 256, k: int = 8, turns: int = 2,
+                    calls_per_turn: int = 2) -> dict:
+    """The train step as one device program (`training/train_state.py::
+    TrainGraphs`) at the bench's full-scale train workload: the train
+    cell's model, B=32 synthetic pockets of 230 atoms in 256 slots, K=8
+    steps a call. A captured call against K eager steps from identical
+    weights, Adam state and generator (each step's loss within rtol 1e-5,
+    each weight leaf within 2e-4 max|b| + 2e-5, the generators' states
+    equal), over a call that builds its graph and one on the kept graph;
+    again at K=1 and at accumulate 3 from phases 0 and 2; the planted
+    faults `frozen_lr` (the rate captured as a Python float, replayed
+    after a 10x cut) and `stale_batches` (replayed without the new
+    batches) each at least 10 x the tolerance away (a non-finite miss
+    counts as infinite); exactly 1 K1, 2 K2 and 2 K3 a step as captured
+    launches x replays, nothing launched outside the replay of a kept
+    graph; train steps/s eager against captured in alternating turns,
+    capture ms and graph pool bytes; with `profile`, the device's busy
+    share of a captured call."""
+    model = trainstep_model(dev, cfg)
+    batches = train_batches(2 * k, batch_size, atoms, slots)
+    lines, faults, (eager, graphed) = trainstep_cases(dev, model, batches,
+                                                      k)
+    graphs = list(graphed[1].train_graphs.values())
+    # speed: the same K-step calls, eager and on the kept graph, in turns
+    rates = {"eager": [], "captured": []}
+    order = ["eager", "captured", "captured", "eager"] * turns
+    for name in order[:2 * turns]:
+        run = eager_call if name == "eager" else captured_train_call
+        setup = eager if name == "eager" else graphed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(calls_per_turn):
+            run(setup, batches[(i % 2) * k:(i % 2 + 1) * k], 1e-3)
+        torch.cuda.synchronize()
+        rates[name].append(calls_per_turn * k / (time.perf_counter() - t0))
+    if profile:
+        profile_run(f"profile trainstep: one captured call of {k} steps "
+                    f"(B={batch_size})",
+                    lambda: captured_train_call(graphed, batches[:k], 1e-3),
+                    "trainstep")
+        profile_run(f"profile trainstep: {k} eager steps (B={batch_size})",
+                    lambda: eager_call(eager, batches[:k], 1e-3),
+                    "trainstep_eager")
+    print(f"trainstep: on {card()}: B={batch_size}, {atoms} atoms in "
+          f"{slots} slots, K={k}: " + "; ".join(lines)
+          + f"; planted faults {json.dumps(faults)} x the tolerance "
+          f"(at least 10); {PER_STEP} a step as captured launches x "
+          f"replays, none outside a kept graph's replay; train steps/s in "
+          f"turns {order[:2 * turns]}: eager "
+          f"{' '.join(f'{r:.3f}' for r in rates['eager'])}, captured "
+          f"{' '.join(f'{r:.3f}' for r in rates['captured'])}; the K={k} "
+          f"graph: capture {graphs[0].capture_ms:.1f} ms (its warm-up step "
+          f"included), pool {graphs[0].pool_bytes} B", flush=True)
+    return {"eager": rates["eager"], "captured": rates["captured"],
+            "capture_ms": graphs[0].capture_ms,
+            "pool_bytes": graphs[0].pool_bytes, "faults": faults}
 
 
 # ------------------------------------------------------------------ bench
@@ -2473,7 +2890,12 @@ def phase_bench(dev, argv=("--repeats", "2")) -> dict:
     `argv` (it prints its JSON line): every key of BENCH_KEYS, the rates
     positive, the MFU figures at most 1, on this card."""
     from pharmaforge_tpu_torch import bench
+    from pharmaforge_tpu_torch.models import diffusion
+    replays = diffusion.train_graph_replays
     res = bench.main(list(argv) + ["--device", str(dev)])
+    replays = diffusion.train_graph_replays - replays
+    check(replays > 0 or dev.type != "cuda",
+          f"bench: its train steps ran no train graph replay")
     missing = [k for k in BENCH_KEYS if k not in res]
     check(not missing, f"bench: keys missing {missing}")
     rates = [res["value"], res["spread_min"], res["train_steps_per_sec"],
@@ -2489,7 +2911,8 @@ def phase_bench(dev, argv=("--repeats", "2")) -> dict:
     print(f"bench: on {card()}: {res['value']} samples/s dev (median of "
           f"{res['repeats']}), {res['fullscale_samples_per_sec']} full "
           f"scale, train steps/s {res['train_steps_per_sec']} / "
-          f"{res['fullscale_train_steps_per_sec']}, MFU {mfu}", flush=True)
+          f"{res['fullscale_train_steps_per_sec']} (captured, {replays} "
+          f"train graph replays), MFU {mfu}", flush=True)
     return res
 
 
@@ -2509,20 +2932,22 @@ def dist_setup(data_dir: str, run_dir: str, device: str, backend,
     process group) or as a rank of a group: `Trainer.fit` of
     `config_fn(data_dir)` into `run_dir`, then one `PocketSampler.sample_stacked`
     of `sample_cfg` with the trained weights. Returns (launches per
-    optimizer step, the weights after the fit, the sampled dense
-    centres, the rank, the chain's graph replays on this rank)."""
+    train call (`record_call`), the weights after the fit, the sampled
+    dense centres, the rank, the chain's graph replays on this rank, the
+    train steps' mode, `train_state.step_mode`)."""
     from pharmaforge_tpu_torch.config.load_from_config import (
         data_module_from_config, model_from_config)
     from pharmaforge_tpu_torch.models import diffusion
     from pharmaforge_tpu_torch.parallel import mesh
     from pharmaforge_tpu_torch.training.sampling import PocketSampler
+    from pharmaforge_tpu_torch.training.train_state import step_mode
     from pharmaforge_tpu_torch.training.trainer import Trainer
     dev = (torch.device(device) if backend is None else
            mesh.init_distributed(device=device, backend=backend))
     config = config_fn(data_dir)
     trainer = Trainer(config, run_dir, device=dev)
-    per_step: list = []
-    count_steps(trainer, per_step)
+    calls: list = []
+    count_calls(trainer, calls)
     model = model_from_config(config, device=dev)
     trainer.fit(model, data_module_from_config(config))
     weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
@@ -2533,8 +2958,8 @@ def dist_setup(data_dir: str, run_dir: str, device: str, backend,
     replays = diffusion.graph_replays
     sampler.sample_stacked(pockets, [sizes] * len(pockets),
                            torch.Generator(device=dev).manual_seed(7))
-    return (per_step, weights, sampler.last_output["pharm_x"], mesh.rank(),
-            diffusion.graph_replays - replays)
+    return (calls, weights, sampler.last_output["pharm_x"], mesh.rank(),
+            diffusion.graph_replays - replays, step_mode(dev))
 
 
 def weights_close(got: dict, want: dict) -> tuple:
@@ -2563,8 +2988,11 @@ def phase_dist(dev, config_fn=dist_config, samples_per_split: int = 24,
     """Data parallelism (`parallel/mesh.py`) on the card: `dist_setup`
     three ways, from the same seed and data: without a process group, as
     one NCCL rank, and as two gloo ranks sharing the card (NCCL refuses
-    two ranks on one device). Each rank launches exactly 1 K1, 2 K2 and 2
-    K3 per optimizer step; the weights after the fit agree with the
+    two ranks on one device). Each rank runs exactly 1 K1, 2 K2 and 2 K3
+    per optimizer step (`check_calls`): captured without a group and as
+    the NCCL rank, eagerly on the two gloo ranks (gloo's all-reduce
+    cannot be captured; each rank's mode is printed); the weights after
+    the fit agree with the
     no-group run's at the fp32 train-step tolerance per leaf (whether the
     NCCL run's are bit-equal is printed); rank 0 alone writes (the run
     dirs list the same files, each metric line once, the metrics within
@@ -2592,8 +3020,10 @@ def phase_dist(dev, config_fn=dist_config, samples_per_split: int = 24,
         t0 = time.perf_counter()
         alone = dist_setup(data, f"{tmp}/alone", where, None, *args)
         alone_s = time.perf_counter() - t0
-        check(len(alone[0]) > 0 and all(c == PER_STEP for c in alone[0]),
-              f"dist: launches per step without a group {alone[0]}")
+        alone_steps = check_calls("dist without a group", alone[0])
+        check(alone_steps > 0 and all(c["captured"] == (dev.type == "cuda")
+                                      for c in alone[0]),
+              f"dist: without a group {calls_summary(alone[0])}")
         # the control: the same run again, still without a group
         again = weights_close(dist_setup(data, f"{tmp}/again", where, None,
                                          *args)[1], alone[1])
@@ -2627,10 +3057,16 @@ def phase_dist(dev, config_fn=dist_config, samples_per_split: int = 24,
                       if k != "step")
             check(rel <= 1e-4, f"dist {name}: metrics within {rel:.3e}")
             worst, equal, sample_dev = 0.0, True, 0.0
-            for per_step, weights, centres, r, replays in ranks:
-                check(len(per_step) == len(alone[0]) > 0 and all(
-                    c == PER_STEP for c in per_step),
-                    f"dist {name} rank {r}: launches per step {per_step}")
+            modes = []
+            for calls, weights, centres, r, replays, mode in ranks:
+                want_captured = dev.type == "cuda" and name == "nccl"
+                check(check_calls(f"dist {name} rank {r}", calls)
+                      == alone_steps and all(
+                          c["captured"] == want_captured for c in calls),
+                      f"dist {name} rank {r}: {calls_summary(calls)}, "
+                      f"expected {alone_steps} steps, captured "
+                      f"{want_captured}")
+                modes.append(mode)
                 # each rank captures and replays its own chain
                 want_replays = (chain_replays(sample_cfg)
                                 if dev.type == "cuda" else 0)
@@ -2646,18 +3082,19 @@ def phase_dist(dev, config_fn=dist_config, samples_per_split: int = 24,
             check(sample_dev < CHAIN_TOL, f"dist {name}: sample_stacked "
                                           f"differs by {sample_dev:.3e}")
             lines.append(f"{name} ({len(ranks)} rank{'s' * (len(ranks) > 1)}"
-                         f", {secs:.1f} s with start-up): {len(alone[0])} "
-                         f"steps, {PER_STEP} launches every step on every "
+                         f", {secs:.1f} s with start-up): {alone_steps} "
+                         f"steps, train steps {sorted(set(modes))}, "
+                         f"{PER_STEP} a step on every "
                          f"rank, each rank's chain {want_replays} graph "
                          f"replays, weights at {worst:.4f} of the train-step "
                          f"bound (bit-equal {equal}), metrics max rel "
                          f"{rel:.3e}, files as the no-group run's, "
                          f"sample_stacked max|dx| {sample_dev:.3e} "
                          f"(tolerance {CHAIN_TOL})")
-    fit_launches = {k: sum(c[k] for c in runs["gloo"][0][0][0])
+    fit_launches = {k: sum(c["launched"][k] for c in runs["gloo"][0][0][0])
                     for k in KERNELS}
     print(f"dist: {card() if dev.type == 'cuda' else where}: no process "
-          f"group {alone_s:.1f} s, run again without a group: weights at "
+          f"group {alone_s:.1f} s (train steps {alone[5]}), run again without a group: weights at "
           f"{again[0]:.4f} of the train-step bound (bit-equal {again[1]}); "
           + "; ".join(lines)
           + f"; rank 0 of the two gloo ranks launched {fit_launches} in "
@@ -2685,35 +3122,27 @@ def cli_config(tmp: Path) -> dict:
 
 
 @contextlib.contextmanager
-def cli_counters(per_step: list, k_outs: list, seconds: list | None = None):
-    """Inside the block, each optimizer step's launches go to `per_step`
-    (as `count_steps` does, for the trainers a CLI builds), its host wall
-    (the trainer's own step timing) to `seconds` where given, and each
-    `pp_k_out` that `PocketSampler` probes to `k_outs`."""
+def cli_counters(calls: list, k_outs: list):
+    """Inside the block, each train call's record (`record_call`) goes to
+    `calls`, for the trainers a CLI builds, and each `pp_k_out` that
+    `PocketSampler` probes to `k_outs`."""
     from pharmaforge_tpu_torch.training.sampling import PocketSampler
     from pharmaforge_tpu_torch.training.trainer import Trainer
-    real_step, real_probe = Trainer.train_step, PocketSampler._pp_k_out
+    real_call, real_probe = Trainer.train_call, PocketSampler._pp_k_out
 
-    def step(self, batch):
-        before = read_launches()
-        t0 = time.perf_counter()
-        out = real_step(self, batch)
-        wall = time.perf_counter() - t0
-        after = read_launches()
-        per_step.append({k: after[k] - before[k] for k in after})
-        if seconds is not None:
-            seconds.append(wall)
-        return out
+    def call(self, batches):
+        return record_call(self, lambda b: real_call(self, b), batches,
+                           calls)
 
     def probe(self, batch, group):
         k_outs.append(real_probe(self, batch, group))
         return k_outs[-1]
 
-    Trainer.train_step, PocketSampler._pp_k_out = step, probe
+    Trainer.train_call, PocketSampler._pp_k_out = call, probe
     try:
         yield
     finally:
-        Trainer.train_step, PocketSampler._pp_k_out = real_step, real_probe
+        Trainer.train_call, PocketSampler._pp_k_out = real_call, real_probe
 
 
 @contextlib.contextmanager
@@ -2845,8 +3274,9 @@ def phase_cli(dev, config_fn=cli_config, samples: tuple = (8, 30)) -> dict:
 
     * train: `--config` for one epoch on the synthetic set it writes,
       `config.yaml` read back as the merged config, `metrics.jsonl` and
-      `checkpoints/last/model.pt`, exactly 1 K1, 2 K2 and 2 K3 launches
-      per optimizer step; then `--resume` with `max_epochs` 2, the step
+      `checkpoints/last/model.pt`, exactly 1 K1, 2 K2 and 2 K3 a step
+      as each train call's graph replays them (`check_calls`); then
+      `--resume` with `max_epochs` 2, the step
       count going on from the first fit;
     * export: `interop.export_reference_checkpoint` writes
       `checkpoints/exported_reference.ckpt`, whose weights read back
@@ -2885,8 +3315,8 @@ def phase_cli(dev, config_fn=cli_config, samples: tuple = (8, 30)) -> dict:
         config = config_fn(tmp)
         dump_file(config, tmp / "cli.yml")
 
-        per_step, k_outs = [], []
-        with cli_counters(per_step, k_outs):
+        calls, k_outs = [], []
+        with cli_counters(calls, k_outs):
             run, fit, fit_s, _ = run_cli(
                 train.main, ["--config", tmp / "cli.yml", "--seed", "1",
                              *dev_arg])
@@ -2905,21 +3335,23 @@ def phase_cli(dev, config_fn=cli_config, samples: tuple = (8, 30)) -> dict:
               "cli train: no checkpoints/last/model.pt")
         steps = json.loads((run / "checkpoints" / "last" / "meta.json")
                            .read_text())["step"]
-        check(len(per_step) == steps > 0 and all(
-            c == PER_STEP for c in per_step),
-            f"cli train: {steps} steps, launches per step {per_step}")
-        check(fit["pp_message_bwd"] == 2 * steps,
-              f"cli train: {fit['pp_message_bwd']} K3 launches in "
-              f"{steps} steps")
+        check(check_calls("cli train", calls) == steps > 0,
+              f"cli train: {steps} steps, {calls_summary(calls)}")
+        check(fit["pp_message_bwd"]
+              == sum(c["launched"]["pp_message_bwd"] for c in calls),
+              f"cli train: {fit['pp_message_bwd']} K3 launches outside "
+              f"the train calls' {calls_summary(calls)}")
         lines.append(f"train CLI: {steps} steps of batch "
                      f"{config['training']['batch_size']} in 1 epoch "
-                     f"(dataset written by the CLI), {fit_s} s wall, "
-                     f"launches {fit} (K2 beyond 2 a step: validation)")
+                     f"(dataset written by the CLI), {calls_summary(calls)}"
+                     f", {fit_s} s wall, wrapper counts {fit} (the graphs' "
+                     f"warm-up steps and captures, validation), replayed "
+                     f"{read_train_replayed()}")
 
         saved["training"]["trainer_args"]["max_epochs"] = 2
         dump_file(saved, run / "config.yaml")
-        per_step.clear()
-        with cli_counters(per_step, k_outs):
+        calls.clear()
+        with cli_counters(calls, k_outs):
             _, resumed, resume_s, _ = run_cli(
                 train.main, ["--resume", run, *dev_arg])
         meta = json.loads((run / "checkpoints" / "last" / "meta.json")
@@ -2930,11 +3362,13 @@ def phase_cli(dev, config_fn=cli_config, samples: tuple = (8, 30)) -> dict:
               and new[0]["step"] == steps + 1,
               f"cli resume: step {meta['step']}, epoch {meta['epoch']}, "
               f"first new step {new[0]['step']} after {steps} steps")
-        check(len(per_step) == steps and all(
-            c == PER_STEP for c in per_step) and resumed["pp_message_bwd"]
-            == 2 * steps, f"cli resume: launches per step {per_step}")
+        check(check_calls("cli resume", calls) == steps
+              and resumed["pp_message_bwd"]
+              == sum(c["launched"]["pp_message_bwd"] for c in calls),
+              f"cli resume: {calls_summary(calls)}, K3 {resumed}")
         lines.append(f"train CLI --resume: steps {steps + 1}-{2 * steps} "
-                     f"(epoch 2), {resume_s} s wall, launches {resumed}")
+                     f"(epoch 2), {calls_summary(calls)}, {resume_s} s "
+                     f"wall, wrapper counts {resumed}")
 
         ckpt = export_reference_checkpoint(run)
         cfg = DiffusionConfig.from_config(saved)
@@ -3388,7 +3822,7 @@ def phase_preprocess(dev, pairs: int = 96, workers: int = 4,
       slots), beside the fit's median host wall of a step;
     * the train CLI fits `config_fn`'s model (the train cell's) for one
       epoch on the processed set on `dev`: exactly 1 K1, 2 K2 and 2 K3
-      launches in every step; the first K1 call and the first K2 call of
+      in every step (`check_calls`); the first K1 call and the first K2 call of
       each layout (the train steps' and validation's) against their plain
       versions (`check_cli_kernels`) and K3 on the first train-step K2
       call's inputs against the plain version in fp64 (`ppbwd_*`);
@@ -3448,18 +3882,18 @@ def phase_preprocess(dev, pairs: int = 96, workers: int = 4,
 
         # the fit on the card
         dump_file(config, tmp / "run.yml")
-        per_step, k_outs, walls, calls = [], [], [], {}
-        with cli_counters(per_step, k_outs, walls), cli_kernel_calls(calls):
+        train_calls, k_outs, calls = [], [], {}
+        with cli_counters(train_calls, k_outs), cli_kernel_calls(calls):
             run, fit, fit_s, _ = run_cli(
                 train.main, ["--config", tmp / "run.yml", "--seed", "1",
                              "--device", str(dev)])
         steps = json.loads((run / "checkpoints" / "last" / "meta.json")
                            .read_text())["step"]
         want_steps = -(-2 * pairs // config["training"]["batch_size"])
-        check(steps == want_steps == len(per_step) and all(
-            c == PER_STEP for c in per_step),
-            f"preprocess fit: {steps} steps (expected {want_steps}), "
-            f"launches per step {per_step}")
+        check(steps == want_steps == check_calls("preprocess fit",
+                                                 train_calls),
+              f"preprocess fit: {steps} steps (expected {want_steps}), "
+              f"{calls_summary(train_calls)}")
         # two K2 layouts: the train steps' (full width) and validation's
         # (eval mode: the compact prot tail); the first is the train step's
         errs = check_cli_kernels("preprocess fit", calls, 2)
@@ -3520,7 +3954,8 @@ def phase_preprocess(dev, pairs: int = 96, workers: int = 4,
                            f"{dev} vs {want_h!r} on the CPU")
         hinge.append(rel)
 
-    step_wall = float(np.median(walls[1:])) * 1e6
+    walls = [c["wall"] / c["steps"] for c in train_calls if not c["built"]]
+    step_wall = float(np.median(walls)) * 1e6
     where = card() if dev.type == "cuda" else str(dev)
     print(f"preprocess: raw tree 3 x {pairs} pairs written in {tree_s:.2f} "
           f"s; process_crossdocked --max_workers {workers} {cli_s:.2f} s "
@@ -3531,9 +3966,9 @@ def phase_preprocess(dev, pairs: int = 96, workers: int = 4,
           f"median us over {pack_calls} calls {json.dumps(packs)}; train "
           f"CLI on {where}: {steps} steps of batch "
           f"{config['training']['batch_size']} in 1 epoch, {fit_s:.2f} s "
-          f"wall, median host wall of a step {step_wall:.1f} us over the "
-          f"{len(walls) - 1} after the first, launches {fit}, per step "
-          f"{PER_STEP} in every step; first calls vs their plain versions, "
+          f"wall, {calls_summary(train_calls)}, median host wall of a "
+          f"step {step_wall:.1f} us over the calls on kept graphs, wrapper "
+          f"counts {fit}, {PER_STEP} a step in every call; first calls vs their plain versions, "
           f"max abs err {json.dumps(errs)}; test CLI 1 pocket x {samples} "
           f"at T={sample_steps}: {test_s:.2f} s wall, launches {sampled}, "
           f"pp_k_out {k_outs}, {pocket_files}; hinge loss {dev} vs CPU "
@@ -3578,17 +4013,22 @@ def main() -> int:
     width_launches = timed(phase_fullwidth, dev, profile)
     tables_launches = timed(phase_tables, dev, per_step=per_step)
     ppbwd = timed(phase_ppbwd, dev)
-    train_launches, train_replayed = timed(phase_train, dev, profile)
+    timed(phase_trainstep, dev, profile)
+    train_launches, train_replayed, train_graphs = timed(phase_train, dev,
+                                                         profile)
     dist_launches = timed(phase_dist, dev)
     cli_launches = timed(phase_cli, dev)
     timed(phase_bench, dev)
     kernels = [knn, pp, ppbwd]
     for kern in kernels:
         # `launches`: the 2-epoch training run, as the wrappers count
-        # (eager steps; its sampling chain's launches where captured)
+        # (its train graphs' warm-up steps and captures, validation, its
+        # sampling chain's capture)
         kern["launches"] = train_launches[kern["name"]]
-        # the chain launches below: each graph's captured launches x its
-        # replays (`diffusion.replayed_launches`)
+        # the launches below: each graph's captured launches x its
+        # replays (`diffusion.train_replayed_launches` for the fit's train
+        # graphs, `diffusion.replayed_launches` for the chains)
+        kern["launches_train_replayed_fit"] = train_graphs[kern["name"]]
         kern["launches_replayed_fit"] = train_replayed[kern["name"]]
         kern["graph_replays_fullscale_chain"] = chain_replays(full_config())
         kern["graph_replays_dev_chain"] = chain_replays(dev_config())
@@ -3599,7 +4039,8 @@ def main() -> int:
         kern["launches_tables_chain"] = tables_launches[kern["name"]]
         kern["launches_dist_rank0"] = dist_launches[kern["name"]]
         kern["launches_preprocessed_fit"] = prep_launches[kern["name"]]
-        for key in ("launches", "launches_preprocessed_fit"):
+        for key in ("launches", "launches_train_replayed_fit",
+                    "launches_preprocessed_fit"):
             check(kern[key] > 0, f"{kern['name']}: not launched in "
                                  f"{key}")
     print(card())

@@ -20,10 +20,11 @@ The counterpart of the JAX package's `bench.py`, flag for flag
   chain as CUDA graph replays (`models/diffusion.py::ChainGraphs`); the
   graphs are captured in the untimed first call and reused.
 * train (`run_train_bench`, :423-520): batch 32 of 230-atom pockets (256
-  slots), dropout 0.1, Adam at 1e-3, 8 x 4 steps per repeat, 3 repeats,
-  through `training/train_state.py::train_step`, one step at a time and
-  eagerly: the JAX package scans 8 steps per device call; the port's
-  train step is not captured yet.
+  slots), dropout 0.1, Adam at 1e-3, 4 calls of 8 steps per repeat, 3
+  repeats, each call `training/train_state.py::multi_train_step` on the
+  batch stacked 8 times, as the JAX bench scans 8 steps a device call; on
+  the card each call replays a CUDA graph of its 8 steps (captured in the
+  untimed first call), and each copies its metrics to the host.
 * the full-scale ride-along (`run_fullscale_bench`, :523-558): T=1000,
   n_convs=4, endpoint, 4 pockets a call, depth 4, 3 repeats, and its
   train steps/s.
@@ -267,14 +268,16 @@ def run_sampling_bench(args, model, batch, group: int, dev) -> dict:
 
 def run_train_bench(args, dev) -> dict:
     """bench.py:423-520 on the port: train steps/s, median of 3 repeats
-    of 8 x 4 eager steps after one warm-up step."""
+    of 4 calls of 8 steps (`multi_train_step` on the batch stacked 8
+    times; CUDA graph replays on the card) after one untimed call."""
     from pharmaforge_tpu_torch.data.batch import bucket_size, \
-        collate_complexes
+        collate_complexes, stack_batches
     from pharmaforge_tpu_torch.data.synthetic import make_synthetic_pocket
     from pharmaforge_tpu_torch.models.diffusion import (
         DiffusionConfig, PharmacophoreDiffusion)
     from pharmaforge_tpu_torch.training.optim import Adam
-    from pharmaforge_tpu_torch.training.train_state import train_step
+    from pharmaforge_tpu_torch.training.train_state import \
+        multi_train_step
     if args.quick:
         cfg = quick_config()
         batch_size, pocket_atoms, steps_per_call, n_calls, repeats = (
@@ -307,13 +310,14 @@ def run_train_bench(args, dev) -> dict:
     batch = collate_complexes(samples, max_prot=bucket_size(pocket_atoms))
     optimizer = Adam(model.parameters(), 1e-3, weight_decay=1e-12)
     gen = torch.Generator(device=dev).manual_seed(1)
-    train_step(model, optimizer, batch, gen, 1e-3)      # warm-up
+    stacked = stack_batches([batch] * steps_per_call)
+    multi_train_step(model, optimizer, stacked, gen, 1e-3)   # capture
     sync(dev)
     rates = []
     for _ in range(repeats):
         t0 = time.perf_counter()
-        for _ in range(n_calls * steps_per_call):
-            train_step(model, optimizer, batch, gen, 1e-3)
+        for _ in range(n_calls):
+            multi_train_step(model, optimizer, stacked, gen, 1e-3)
         sync(dev)
         rates.append(n_calls * steps_per_call / (time.perf_counter() - t0))
     steps_per_sec = float(np.median(rates))

@@ -111,6 +111,23 @@ def pad_batch_to_multiple(batch: PharmComplexBatch, multiple: int):
         f.name: pad(f.name) for f in dataclasses.fields(PharmComplexBatch)}), b
 
 
+def stack_batches(batches: Sequence[PharmComplexBatch]
+                  ) -> PharmComplexBatch:
+    """K same-shape batches stacked on a new leading axis (JAX
+    data/batch.py:117-121): the input of one multi-step train call
+    (`training/train_state.py::multi_train_step`)."""
+    return PharmComplexBatch(**{
+        f.name: np.stack([np.asarray(getattr(b, f.name)) for b in batches])
+        for f in dataclasses.fields(PharmComplexBatch)})
+
+
+def unstack_batch(batches: PharmComplexBatch, i: int) -> PharmComplexBatch:
+    """The `i`-th batch of a stacked batch."""
+    return PharmComplexBatch(**{
+        f.name: getattr(batches, f.name)[i]
+        for f in dataclasses.fields(PharmComplexBatch)})
+
+
 def tile_pocket(prot_x: np.ndarray, prot_h: np.ndarray,
                 pharm_sizes: Sequence[int],
                 n_pharm_feats: int = 6,

@@ -20,7 +20,9 @@ finalisation back into the pocket frame.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -341,8 +343,7 @@ class PharmacophoreDiffusion(nn.Module):
             (n_global,) + h0.shape[1:], generator=generator,
             device=dev)[mine]).float() * fmask[..., None]
 
-        gamma_t = self._tensor(np.asarray(self.gamma_table, np.float32))[
-            t_int]
+        gamma_t = self._gamma()[t_int]
         alpha_t = alpha_of_gamma(gamma_t)[:, None, None]
         sigma_t = sigma_of_gamma(gamma_t)[:, None, None]
         x_t = alpha_t * x0 + sigma_t * eps_x
@@ -568,6 +569,17 @@ class PharmacophoreDiffusion(nn.Module):
             chain.state["traj_h"][0] = h0
         return chain
 
+    def _gamma(self) -> torch.Tensor:
+        """The noise table [T+1] fp32 on the model's device, made once per
+        device, so the loss makes no host copy (a captured train step
+        cannot)."""
+        gamma = getattr(self, "_gamma_table", None)
+        if gamma is None or gamma.device != self.device:
+            gamma = torch.from_numpy(
+                np.asarray(self.gamma_table, np.float32)).to(self.device)
+            self._gamma_table = gamma
+        return gamma
+
     def _schedule(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The chain's per-step tables on the model's device, made once
         per device (no host copy, so no sync, in a later chain's set-up):
@@ -749,13 +761,48 @@ graph_replays = 0
 # (which count a launch where it is captured, not where it is replayed)
 replayed_launches = {"knn_select": 0, "pp_message": 0, "pp_message_bwd": 0,
                      "corrections": 0}
+# the same for captured train steps (`training/train_state.py::TrainGraphs`)
+train_graph_replays = 0
+train_replayed_launches = dict.fromkeys(replayed_launches, 0)
 
 
-def _launch_counts() -> Dict[str, int]:
+@contextlib.contextmanager
+def collector_paused():
+    """Dead reference cycles collected now, and Python's cyclic garbage
+    collector off inside the block: a collection during a CUDA graph
+    capture could destroy an old graph kept in such a cycle, which a
+    capturing stream does not allow (the capture is invalidated)."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def launch_counts() -> Dict[str, int]:
+    """The wrappers' launch counts and the correction passes, now."""
     return {"knn_select": knn_select.launches,
             "pp_message": pp_message.launches,
             "pp_message_bwd": pp_message.bwd_launches,
             "corrections": conv.corrections}
+
+
+def add_replays(counts: Dict[str, int], replays: int,
+                train: bool = False) -> None:
+    """Count `replays` replays of a graph whose capture recorded `counts`
+    (chain graphs, or train graphs with `train`)."""
+    global graph_replays, train_graph_replays
+    if train:
+        train_graph_replays += replays
+        launched = train_replayed_launches
+    else:
+        graph_replays += replays
+        launched = replayed_launches
+    for k, n in counts.items():
+        launched[k] += n * replays
 
 
 class ChainGraphs:
@@ -789,26 +836,28 @@ class ChainGraphs:
                 step(self.chain)
             torch.cuda.current_stream(dev).wait_stream(side)
             self.load(chain)
-            torch.cuda.synchronize(dev)
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(dev)
-            full, tail = divmod(chain.n_steps, unroll)
-            pool = None
-            for steps, replays in ((unroll, full), (tail, 1)):
-                if not steps or not replays:
-                    continue
-                graph = torch.cuda.CUDAGraph()
-                before = _launch_counts()
-                with torch.cuda.graph(graph, pool=pool):
-                    for _ in range(steps):
-                        step(self.chain)
-                pool = graph.pool()
-                after = _launch_counts()
-                self.graphs.append(
-                    (graph, replays, {k: after[k] - before[k]
-                                      for k in after}))
-            torch.cuda.synchronize(dev)
-            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+            with collector_paused():
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(dev)
+                full, tail = divmod(chain.n_steps, unroll)
+                pool = None
+                for steps, replays in ((unroll, full), (tail, 1)):
+                    if not steps or not replays:
+                        continue
+                    graph = torch.cuda.CUDAGraph()
+                    before = launch_counts()
+                    with torch.cuda.graph(graph, pool=pool):
+                        for _ in range(steps):
+                            step(self.chain)
+                    pool = graph.pool()
+                    after = launch_counts()
+                    self.graphs.append(
+                        (graph, replays, {k: after[k] - before[k]
+                                          for k in after}))
+                torch.cuda.synchronize(dev)
+                self.pool_bytes = (torch.cuda.memory_reserved(dev)
+                                   - reserved)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
 
     def load(self, chain: ReverseChain) -> None:
@@ -820,11 +869,8 @@ class ChainGraphs:
     def run(self) -> None:
         """The chain's T steps, from the loaded state: every graph's
         replays, enqueued on the current stream without a host sync."""
-        global graph_replays
         self.chain.state["i"].zero_()
         for graph, replays, counts in self.graphs:
             for _ in range(replays):
                 graph.replay()
-            graph_replays += replays
-            for k, n in counts.items():
-                replayed_launches[k] += n * replays
+            add_replays(counts, replays)

@@ -26,56 +26,120 @@ class Adam:
     first `accumulate` - 1 calls only fold the gradients into a running
     mean (`acc += (g - acc) / (n + 1)`, optax's Welford form) and leave the
     parameters alone; the k-th call clips the mean, applies the update and
-    returns True."""
+    returns True.
+
+    On CUDA the step can be captured in a CUDA graph
+    (`training/train_state.py::TrainGraphs`): the inner `torch.optim.Adam`
+    is `capturable` (its step counts live on the device), the learning
+    rate is a 0-d device tensor that `set_lr` writes between replays, and
+    the moments, step counts and accumulation buffers are made here, once,
+    so a graph that reads and writes them stays valid; `load_state_dict`
+    copies into them. The phase of the accumulation cycle, `mini_step`, is
+    a host integer: a graph is specialised to the phase it starts at, and
+    its runner advances `mini_step`. On the CPU `capturable` raises, so
+    there the rate is a float and the update the non-capturable one (the
+    same arithmetic up to rounding)."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
                  weight_decay: float = 0.0, clip_value: Optional[float] = None,
                  accumulate: int = 1):
         self.params: List[torch.nn.Parameter] = [p for p in params
                                                  if p.requires_grad]
-        self.opt = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999),
-                                    eps=1e-8, weight_decay=weight_decay)
+        dev = self.params[0].device if self.params else torch.device("cpu")
+        self.capturable = dev.type == "cuda"
+        self.lr = (torch.tensor(float(lr), device=dev) if self.capturable
+                   else float(lr))
+        self.opt = torch.optim.Adam(self.params, lr=self.lr,
+                                    betas=(0.9, 0.999), eps=1e-8,
+                                    weight_decay=weight_decay,
+                                    capturable=self.capturable)
+        for p in self.params:
+            self.opt.state[p] = {
+                "step": torch.zeros((), dtype=torch.float32,
+                                    device=p.device if self.capturable
+                                    else "cpu"),
+                "exp_avg": torch.zeros_like(p),
+                "exp_avg_sq": torch.zeros_like(p)}
         self.clip_value = clip_value
         self.accumulate = max(int(accumulate or 1), 1)
         self.mini_step = 0
-        self._acc: Optional[List[torch.Tensor]] = None
+        self._acc: List[torch.Tensor] = (
+            [torch.zeros_like(p) for p in self.params]
+            if self.accumulate > 1 else [])
+        # the captured train steps of these parameters, by signature, and
+        # the memory pool they share (training/train_state.py)
+        self.train_graphs: dict = {}
+        self.graph_pool = None
 
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)
 
-    def step(self, lr: float) -> bool:
-        """Apply (or accumulate) the current gradients at rate `lr`; True
-        when the parameters were updated."""
+    def set_lr(self, lr: float) -> None:
+        """The learning rate of the following updates: written into the
+        device tensor a captured step reads (CUDA), or the float the
+        update reads (CPU)."""
+        if self.capturable:
+            self.lr.fill_(float(lr))
+        else:
+            self.lr = float(lr)
+            for group in self.opt.param_groups:
+                group["lr"] = self.lr
+
+    def step(self, lr: Optional[float] = None) -> bool:
+        """Apply (or accumulate) the current gradients, at rate `lr` where
+        given (else at the last rate set); True when the parameters were
+        updated. Inside a CUDA graph capture pass no `lr`: the graph reads
+        the rate `set_lr` writes before each replay."""
+        if lr is not None:
+            self.set_lr(lr)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         if self.accumulate > 1:
-            if self._acc is None:
-                self._acc = [torch.zeros_like(p) for p in self.params]
             n = self.mini_step
             for a, g in zip(self._acc, grads):
+                if n == 0:
+                    a.zero_()
                 a.add_((g - a) / (n + 1))
             self.mini_step = (n + 1) % self.accumulate
             if self.mini_step:
                 return False
             grads = self._acc
-            self._acc = None
         for p, g in zip(self.params, grads):
             if self.clip_value is not None:
                 g = torch.clamp(g, -self.clip_value, self.clip_value)
             p.grad = g
-        for group in self.opt.param_groups:
-            group["lr"] = lr
         self.opt.step()
         return True
 
     def state_dict(self) -> dict:
         return {"adam": self.opt.state_dict(), "mini_step": self.mini_step,
-                "acc": self._acc}
+                "acc": ([a.clone() for a in self._acc] if self.mini_step
+                        else None)}
 
     def load_state_dict(self, state: dict) -> None:
+        """Restore a `state_dict` into this optimizer's own tensors (the
+        ones a captured step holds); the learning rate and the settings
+        stay this optimizer's (the trainer passes the rate each call)."""
+        held = {p: self.opt.state[p] for p in self.params}
+        groups = [{k: v for k, v in g.items() if k != "params"}
+                  for g in self.opt.param_groups]
         self.opt.load_state_dict(state["adam"])
-        self.mini_step = state.get("mini_step", 0)
-        self._acc = state.get("acc")
+        with torch.no_grad():
+            for p in self.params:
+                new = self.opt.state.get(p, {})
+                for k, t in held[p].items():
+                    if k in new:
+                        t.copy_(new[k])
+                    else:
+                        t.zero_()
+                self.opt.state[p] = held[p]
+            for group, saved in zip(self.opt.param_groups, groups):
+                group.update(saved)
+            self.mini_step = state.get("mini_step", 0)
+            acc = state.get("acc")
+            if self.mini_step and acc is not None:
+                for a, b in zip(self._acc, acc):
+                    a.copy_(b)
 
 
 @dataclasses.dataclass

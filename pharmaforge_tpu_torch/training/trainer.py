@@ -22,11 +22,21 @@ parallel with the JAX trainer's rank discipline (trainer.py:34-45,
 keeps its rows, the gradients and validation sums are summed over the
 ranks, and rank 0 alone writes metrics, progress lines and checkpoints;
 the sampling evaluation runs on every rank. The JAX trainer's
-transient-retry code has no counterpart here; `training.steps_per_call`
-is accepted and the steps run one by one (the JAX package documents the
-numerics as the same). All randomness (diffusion noise, dropout,
-sampling) comes from one `torch.Generator` on the device, seeded with
-`seed`, drawn alike on every rank, and kept in the checkpoint.
+transient-retry code has no counterpart here.
+
+`training.steps_per_call` = K runs the JAX trainer's chunk path
+(trainer.py:344-393): the batches of an epoch are grouped by padded
+shape, every K of one shape run as one `multi_train_step` call at one
+learning rate, and the leftovers of each shape run singly at the epoch's
+end. The per-step bookkeeping (metrics, progress, the fractional-epoch
+validation with its plateau cut, train-time sampling) runs for each step
+after its call, on the state after the call, so a cut takes effect at the
+next call. On the card every call replays a CUDA graph of its steps; on
+the CPU and under a gloo process group the steps run eagerly
+(`train_state.captured`; the fit prints which). All randomness
+(diffusion noise, dropout, sampling) comes from one `torch.Generator` on
+the device, seeded with `seed`, drawn alike on every rank, and kept in
+the checkpoint.
 """
 
 from __future__ import annotations
@@ -41,7 +51,11 @@ import torch
 
 from pharmaforge_tpu_torch import resolve_device
 from pharmaforge_tpu_torch.analysis.metrics import SampleAnalyzer
-from pharmaforge_tpu_torch.data.batch import bucket_size, pad_batch_to_multiple
+from pharmaforge_tpu_torch.data.batch import (
+    bucket_size,
+    pad_batch_to_multiple,
+    stack_batches,
+)
 from pharmaforge_tpu_torch.data.datamodule import CrossdockedDataModule
 from pharmaforge_tpu_torch.data.prefetch import prefetch
 from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
@@ -55,7 +69,11 @@ from pharmaforge_tpu_torch.training.checkpoints import RunCheckpointer
 from pharmaforge_tpu_torch.training.logging import MetricsLogger, NullLogger
 from pharmaforge_tpu_torch.training.optim import Adam, ReduceLROnPlateau
 from pharmaforge_tpu_torch.training.sampling import PocketSampler
-from pharmaforge_tpu_torch.training.train_state import eval_step, train_step
+from pharmaforge_tpu_torch.training.train_state import (
+    eval_step,
+    multi_train_step,
+    step_mode,
+)
 
 
 class Trainer:
@@ -74,6 +92,8 @@ class Trainer:
         self.max_epochs = targs.get("max_epochs", 10)
         self.accumulate = targs.get("accumulate_grad_batches", 1) or 1
         self.limit_train_batches = 100 if debug else None
+        # optimizer steps a call (JAX trainer.py:122-125)
+        self.steps_per_call = tr.get("steps_per_call", 1) or 1
         # PL semantics: float = fraction of the val loader, int = batches
         self.limit_val_batches = targs.get("limit_val_batches", 1.0)
         ev = tr.get("evaluation", {})
@@ -106,7 +126,8 @@ class Trainer:
         self.epoch = 0
         self.last_sample_marker = 0.0
         self.last_val_marker = 0.0
-        # host wall seconds of every optimizer step (train steps/s)
+        # host wall seconds of every optimizer step (train steps/s): each
+        # call's wall over its steps
         self.step_seconds: List[float] = []
         self.progress_refresh = 1 if debug else int(
             tr.get("progress_refresh", 20))
@@ -141,12 +162,17 @@ class Trainer:
 
     # ----------------------------------------------------------------- fit
 
-    def train_step(self, batch) -> Dict[str, float]:
-        """One optimizer step of `self.model` on a padded global batch
-        (this rank's rows of it in a process group)."""
-        batch, rows = local_batch(batch)
-        return train_step(self.model, self.optimizer, batch, self.generator,
-                          self.lr, rows)
+    def train_call(self, batches: list) -> List[Dict[str, float]]:
+        """One call of len(`batches`) optimizer steps of `self.model` at
+        the current learning rate, on padded global batches of one shape
+        (this rank's rows of each in a process group); each step's
+        metrics."""
+        local = [local_batch(b) for b in batches]
+        out = multi_train_step(self.model, self.optimizer,
+                               stack_batches([b for b, _ in local]),
+                               self.generator, self.lr, local[0][1])
+        return [{k: float(v[j]) for k, v in out.items()}
+                for j in range(len(batches))]
 
     def fit(self, model: PharmacophoreDiffusion,
             datamodule: CrossdockedDataModule,
@@ -179,6 +205,8 @@ class Trainer:
             print(f"training on {self.device} | {n_params:,} params | "
                   f"batch {self.batch_size} | {self.max_epochs} epochs"
                   + (f" | {world()} ranks" if world() > 1 else ""))
+            print(f"train steps: {self.steps_per_call} a call, "
+                  f"{step_mode(self.device)}")
 
         while self.epoch < self.max_epochs:
             loader = datamodule.train_dataloader(seed=self.seed + self.epoch)
@@ -187,16 +215,33 @@ class Trainer:
                 n_batches = min(n_batches, self.limit_train_batches)
             epoch_t0 = time.time()
             epoch_metrics: Dict[str, list] = {}
+
+            def run_call(entries):
+                """One call over [(batch_idx, batch)] of one shape, then
+                each step's bookkeeping on the state after the call."""
+                t0 = time.perf_counter()
+                rows = self.train_call([b for _, b in entries])
+                per_step = (time.perf_counter() - t0) / len(entries)
+                self.step_seconds.extend([per_step] * len(entries))
+                for (batch_idx, _), aux in zip(entries, rows):
+                    self._after_step(batch_idx, n_batches, aux,
+                                     epoch_metrics, datamodule)
+
+            pending: Dict[tuple, list] = {}   # padded shape -> entries
             for batch_idx, batch in enumerate(prefetch(loader)):
                 if batch_idx >= n_batches:
                     break
                 # partial batches pad to the full size: one shape a bucket
                 batch, _ = pad_batch_to_multiple(batch, self.batch_size)
-                t0 = time.perf_counter()
-                aux = self.train_step(batch)
-                self.step_seconds.append(time.perf_counter() - t0)
-                self._after_step(batch_idx, n_batches, aux, epoch_metrics,
-                                 datamodule)
+                shape = batch.prot_x.shape
+                entries = pending.setdefault(shape, [])
+                entries.append((batch_idx, batch))
+                if len(entries) == self.steps_per_call:
+                    run_call(pending.pop(shape))
+            # the leftovers of each shape, one step a call
+            for entries in pending.values():
+                for entry in entries:
+                    run_call([entry])
 
             # end of epoch: validation, epoch means, schedule, checkpoint
             val_metrics = self.validate(datamodule)
@@ -223,7 +268,10 @@ class Trainer:
     def _after_step(self, batch_idx: int, n_batches: int, aux: dict,
                     epoch_metrics: dict, datamodule) -> None:
         """Per-step bookkeeping: metrics, progress, and the fractional-
-        epoch cadence of train-time sampling and validation."""
+        epoch cadence of train-time sampling and validation (JAX
+        trainer.py:307-344). It runs after the step's call, so the cadence
+        reads the state after the call: with K steps a call it fires at
+        call boundaries."""
         epoch_exact = self.epoch + batch_idx / max(n_batches, 1)
         self.global_step += 1
         metrics = dict(aux, lr=self.lr, epoch_exact=epoch_exact)

@@ -1,7 +1,9 @@
 """PyTorch/CUDA port on the card: the CUDA kernels (K1's two entries, K2,
 K3) against their plain versions, the golden chain through K1, the
-reverse chain as CUDA graph replays against its eager step loop, and one
-full-width training step on the card against the CPU.
+reverse chain as CUDA graph replays against its eager step loop, one
+full-width training step on the card against the CPU, and captured train
+calls (`training/train_state.py::TrainGraphs`) against eager steps, with
+their planted faults, and a short fit that replays every step.
 
 Every test here is marked `cuda` and skips without a card. The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -382,6 +384,60 @@ def test_frozen_step_index_fails_on_card(dev):
         got = fresh.sample_given_receptor(batch, **kw)["pharm_x"]
     miss = torch.nan_to_num((got - want).abs(), nan=np.inf).max()
     assert float(miss) > 10 * 2e-3
+
+
+def trainstep_case(dev, k: int):
+    """The train cell's model at narrow widths (32 scalars, 8 vectors,
+    n_convs=4, so K1, K2 and K3 all run) and 2k batches of 4 pockets of 40
+    atoms in 64 slots."""
+    import dataclasses
+    from pharmaforge_tpu_torch.models.diffusion import DiffusionConfig
+    cfg = dataclasses.replace(
+        DiffusionConfig.from_config(chip_smoke.train_config("")),
+        n_hidden_scalars=32, vector_size=8, n_timesteps=100)
+    return (chip_smoke.trainstep_model(dev, cfg),
+            chip_smoke.train_batches(2 * k, batch_size=4, atoms=40,
+                                     slots=64))
+
+
+@pytest.mark.parametrize("k", [3, 8])
+def test_captured_train_calls_match_eager(dev, k):
+    """`chip_smoke.trainstep_cases` at a small size: captured calls of K
+    and of 1 step, and at accumulate 3 from two phases, against eager
+    steps within the train-step tolerance with equal generator states and
+    exact replayed counts; the planted faults `frozen_lr` and
+    `stale_batches` at least 10 x the tolerance away."""
+    model, batches = trainstep_case(dev, k)
+    lines, faults, _ = chip_smoke.trainstep_cases(dev, model, batches, k)
+    print("; ".join(lines), faults)
+    assert set(faults) == {"frozen_lr", "stale_batches"}
+    assert all(miss >= 10 for miss in faults.values())
+
+
+def test_trainer_fit_replays_every_step(dev, tmp_path):
+    """A short `Trainer.fit` at 3 steps a call on the card: every call a
+    replay of its graph with 1 K1, 2 K2 and 2 K3 a step
+    (`chip_smoke.check_calls`), calls of 3 and leftovers."""
+    from pharmaforge_tpu_torch.config.load_from_config import (
+        data_module_from_config, model_from_config)
+    from pharmaforge_tpu_torch.data.synthetic import (
+        make_synthetic_processed_dataset)
+    from pharmaforge_tpu_torch.training.trainer import Trainer
+    data = make_synthetic_processed_dataset(
+        str(tmp_path / "data"), n_splits=3, samples_per_split=14,
+        n_prot_range=(30, 60), seed=11)
+    config = chip_smoke.train_config(str(data), max_epochs=1, batch_size=4)
+    config["training"]["steps_per_call"] = 3
+    config["training"]["evaluation"]["sample_interval"] = 0
+    config["dynamics"].update(n_hidden_scalars=32, vector_size=8)
+    trainer = Trainer(config, tmp_path / "run", device=dev)
+    calls: list = []
+    chip_smoke.count_calls(trainer, calls)
+    trainer.fit(model_from_config(config, device=dev),
+                data_module_from_config(config))
+    assert chip_smoke.check_calls("fit", calls) == trainer.global_step
+    assert all(c["captured"] for c in calls)
+    assert {c["steps"] for c in calls} >= {1, 3}
 
 
 def test_a_failed_capture_raises(dev):

@@ -191,6 +191,49 @@ def test_adam_matches_optax(rng, accumulate):
                                        rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("reload", [False, True])
+@pytest.mark.parametrize("accumulate", [1, 3])
+def test_adam_rate_and_state_round_trip(rng, accumulate, reload):
+    """The rate set with `set_lr` between updates (no rebuild) takes
+    effect; with `reload` the state goes through `state_dict` into a fresh
+    optimizer before every micro-step, mid-accumulation too; both against
+    optax as `test_adam_matches_optax`."""
+    shapes = [(4, 3), (5,)]
+    params0 = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    steps = 4 * accumulate
+    grads = [[rng.normal(size=s).astype(np.float32) for s in shapes]
+             for _ in range(steps)]
+    lrs = [1e-2 * 0.5 ** (i // accumulate) for i in range(steps)]
+    opt = joptim.make_optimizer(1e-2, weight_decay=1e-2, clip_value=0.8)
+    if accumulate > 1:
+        opt = optax.MultiSteps(opt, every_k_schedule=accumulate)
+    jp = [jnp.asarray(p) for p in params0]
+    state = opt.init(jp)
+    tp = [torch.nn.Parameter(t(p)) for p in params0]
+
+    def fresh():
+        return Adam(tp, 1e-2, weight_decay=1e-2, clip_value=0.8,
+                    accumulate=accumulate)
+
+    adam = fresh()
+    for i, (g, lr) in enumerate(zip(grads, lrs)):
+        state = _set_lr(state, lr)
+        upd, state = opt.update([jnp.asarray(x) for x in g], state, jp)
+        jp = optax.apply_updates(jp, upd)
+        if reload:
+            saved = adam.state_dict()
+            adam = fresh()
+            adam.load_state_dict(saved)
+            assert adam.mini_step == i % accumulate
+        for p, x in zip(tp, g):
+            p.grad = t(x)
+        adam.set_lr(lr)
+        assert adam.step() == ((i + 1) % accumulate == 0)
+        for a, w in zip(tp, jp):
+            np.testing.assert_allclose(a.detach().numpy(), np.asarray(w),
+                                       rtol=0, atol=1e-6)
+
+
 def test_plateau_schedule_matches_jax():
     kw = dict(factor=0.5, patience=2, min_lr=1e-4, mode="min")
     mine, theirs = ReduceLROnPlateau(**kw), joptim.ReduceLROnPlateau(**kw)
