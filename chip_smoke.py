@@ -13,7 +13,7 @@
 Phases, one line each, then a `wall:` line with the phase's seconds; any
 failure raises and the script exits non-zero. They run in the order build,
 preprocess, knn, golden, graphs, main, pp, fullscale, fullwidth, tables,
-ppbwd, trainstep, train, dist, cli, bench.
+ppbwd, trainstep, evalstep, train, dist, cli, bench.
 
 Every sampling chain on the card runs as CUDA graph replays
 (`models/diffusion.py::ChainGraphs`: a warm-up step, U =
@@ -29,7 +29,9 @@ Every optimizer step on the card runs inside a replayed CUDA graph too
 (`training/train_state.py::TrainGraphs`, `steps_per_call` steps a
 replay): a train call's launches are its graph's captured launches x its
 replay (`read_train_replayed`), and the wrappers count only the warm-up
-step and the capture of a call that builds its graph (`check_calls`).
+step and the capture of a call that builds its graph (`check_calls`). So
+does every validation batch (`training/train_state.py::EvalGraphs`, one
+graph per batch shape, `read_eval_replayed`, `check_vals`).
 
 1. build     -- compile every CUDA kernel of the sampling and training
                 paths from `pharmaforge_tpu_torch/csrc` (nvcc, sm_90a; one
@@ -141,16 +143,29 @@ step and the capture of a call that builds its graph (`check_calls`).
                 away; exactly 1 K1, 2 K2, 2 K3 a step replayed; train
                 steps/s eager against captured in alternating turns,
                 capture ms and graph pool bytes (`phase_trainstep`);
+   evalstep  -- the validation step as one device program: the same model
+                and shape and a second bucket (180 atoms in 192 slots),
+                each batch captured against eager from equal weights and
+                generator states (metrics within rtol 1e-5, generators
+                equal), building each graph, on kept graphs and after a
+                captured train call; exactly 1 K1, 2 K2, 0 K3 a batch
+                replayed; the planted faults `stale_val_batches` and
+                `frozen_weights` at least 10 x the tolerance away;
+                validation batches/s eager against captured in turns,
+                capture ms and pool bytes (`phase_evalstep`);
 8. train     -- `Trainer.fit` at full scale, 8 steps a call: the
                 reference-size model in fp32 with dropout 0.1
                 (bench.py:456-465) on a synthetic 3 x 144-pocket dataset
-                (200-230 atoms, seed 11), batch 32: three epochs without a
-                stop, then two epochs with one sampling evaluation and a
-                third resumed from 'last': every call a graph replay with
+                (200-230 atoms, seed 11), batch 32: two epochs without a
+                stop (one sampling evaluation), then one epoch and the
+                second resumed from 'last': every call a graph replay with
                 exactly 1 K1, 2 K2 and 2 K3 a step, calls of 8 and
                 leftovers, finite losses, a bit-equal checkpoint round
                 trip, the resumed epoch against the run without a stop,
-                train steps/s; and one fp32 step at dropout 0 on the card
+                train steps/s; every validation batch a graph replay with
+                exactly 1 K1 and 2 K2, and the first epoch again with
+                validation eager: validation's share of each fit's wall;
+                and one fp32 step at dropout 0 on the card
                 and on the CPU from the same weights and injected noise
                 (loss within rtol 1e-5, gradients per leaf within 2e-4
                 max|b| + 2e-5);
@@ -668,17 +683,19 @@ def kernel_counters():
 
 
 def reset_launches() -> None:
-    """Every kernel launch count, the correction-pass count and the chain
-    and train graphs' replay counts to 0."""
+    """Every kernel launch count, the correction-pass count and the chain,
+    train and validation graphs' replay counts to 0."""
     from pharmaforge_tpu_torch.models import conv, diffusion
     for mod, attr in kernel_counters().values():
         setattr(mod, attr, 0)
     conv.corrections = 0
     diffusion.graph_replays = 0
     diffusion.train_graph_replays = 0
+    diffusion.eval_graph_replays = 0
     for key in diffusion.replayed_launches:
         diffusion.replayed_launches[key] = 0
         diffusion.train_replayed_launches[key] = 0
+        diffusion.eval_replayed_launches[key] = 0
 
 
 def read_launches() -> dict:
@@ -2377,6 +2394,69 @@ def check_calls(name: str, calls: list) -> int:
     return sum(c["steps"] for c in calls)
 
 
+def record_validation(trainer, real, datamodule, vals: list):
+    """`real(datamodule)`, one validation of `trainer`, with its record
+    appended to `vals`: its batches, the validation graphs it built, the
+    validation graph replays and the launches they ran
+    (`read_eval_replayed`), those the wrappers counted (a built graph's
+    warm-up and capture, or eager batches), and its host wall."""
+    kept = {id(g) for g in eval_graphs(trainer.model)}
+    before, (reps, rep_before) = read_launches(), read_eval_replayed()
+    t0 = time.perf_counter()
+    out = real(datamodule)
+    wall = time.perf_counter() - t0
+    after, (reps_after, rep_after) = read_launches(), read_eval_replayed()
+    vals.append({
+        "batches": trainer.val_batch_count(
+            datamodule.val_dataloader(seed=trainer.seed)),
+        "wall": wall,
+        "built": sum(id(g) not in kept for g in eval_graphs(trainer.model)),
+        "replays": reps_after - reps,
+        "launched": {k: after[k] - before[k] for k in after},
+        "replayed": {k: rep_after[k] - rep_before[k] for k in rep_after}})
+    return out
+
+
+def count_validations(trainer, vals: list) -> None:
+    """Wrap `trainer.validate` so each validation's record
+    (`record_validation`) goes to `vals`."""
+    real = trainer.validate
+    trainer.validate = lambda dm: record_validation(trainer, real, dm, vals)
+
+
+def check_vals(name: str, vals: list, captured: bool) -> int:
+    """Every validation ran exactly 1 K1, 2 K2 and 0 K3 a batch: where
+    `captured`, each batch one replay of a kept graph, its launches the
+    graph's captured launches x its replay, with nothing launched outside
+    the replays but each built graph's warm-up and capture; else launched
+    by the wrappers, with no replay. Returns the batches."""
+    for v in vals:
+        n = v["batches"]
+        if captured:
+            want = (scaled(PER_VAL, 2 * v["built"]), scaled(PER_VAL, n), n)
+        else:
+            want = (scaled(PER_VAL, n), dict.fromkeys(KERNELS, 0), 0)
+        got = (v["launched"], v["replayed"], v["replays"])
+        check(n > 0 and got == want and (captured or not v["built"]),
+              f"{name}: a validation of {n} batches (built {v['built']} "
+              f"graphs) launched, replayed, replays {got}, expected {want}")
+    return sum(v["batches"] for v in vals)
+
+
+def vals_summary(vals: list) -> str:
+    """The validations' batches, graphs built and host wall, and the wall
+    a batch of those that built no graph, in words."""
+    kept = [v for v in vals if not v["built"]]
+    batches = sum(v["batches"] for v in kept)
+    per_batch = (f"{1e3 * sum(v['wall'] for v in kept) / batches:.3f} ms"
+                 if kept else "none")
+    return (f"{len(vals)} validations of {sum(v['batches'] for v in vals)} "
+            f"batches ({sum(v['replays'] for v in vals)} replays, "
+            f"{sum(v['built'] for v in vals)} graphs built, "
+            f"{sum(v['wall'] for v in vals):.3f} s; a batch of those that "
+            f"built no graph {per_batch})")
+
+
 def calls_summary(calls: list) -> str:
     """The calls' step counts, captured and built, in words."""
     sizes = [c["steps"] for c in calls]
@@ -2490,16 +2570,22 @@ def phase_train(dev, profile: bool = False, config_fn=train_config,
     metric tolerance), weights at the fp32 train-step tolerance per leaf
     (bit-equality printed); train steps/s over the calls that built no
     graph (a call's wall over its steps; validation and sampling fall
-    between calls). Returns the launch counts of the 2-epoch fit: the
-    wrappers' (its graphs' warm-up steps and captures, validation, the
-    sampling evaluation's capture), its sampling chain's graph replays'
-    and its train graphs' replays'."""
+    between calls). Every validation of the three fits replays a kept
+    graph a batch: 1 K1, 2 K2 and 0 K3 a batch as captured launches x
+    replays, nothing outside them but a graph's warm-up and capture
+    (`check_vals`). The first epoch runs again with validation eager
+    (`eager_validation`): validation's share of each one-epoch fit's wall
+    is printed. Returns the launch counts of the 2-epoch fit: the
+    wrappers' (its graphs' warm-up steps and captures, the sampling
+    evaluation's capture), its sampling chain's graph replays', its train
+    graphs' replays' and (replays, launches) of its validation graphs."""
     import tempfile
     from pharmaforge_tpu_torch.config.load_from_config import (
         data_module_from_config, model_from_config)
     from pharmaforge_tpu_torch.data.synthetic import (
         make_synthetic_processed_dataset)
     from pharmaforge_tpu_torch.training.checkpoints import RunCheckpointer
+    from pharmaforge_tpu_torch.training.train_state import captured
     from pharmaforge_tpu_torch.training.trainer import Trainer
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2514,8 +2600,9 @@ def phase_train(dev, profile: bool = False, config_fn=train_config,
         keep_data_rng(dm, 1, kept)
         model = model_from_config(config, device=dev)
         trainer = Trainer(config, f"{tmp}/straight", device=dev)
-        fit_calls: list = []
+        fit_calls, fit_vals = [], []
         count_calls(trainer, fit_calls)
+        count_validations(trainer, fit_vals)
         reset_launches()
         t0 = time.perf_counter()
         trainer.fit(model, dm)
@@ -2523,6 +2610,8 @@ def phase_train(dev, profile: bool = False, config_fn=train_config,
         fit_s = time.perf_counter() - t0
         fit_launches, fit_replayed = read_launches(), read_replayed()
         fit_train_replayed = read_train_replayed()
+        fit_eval = read_eval_replayed()
+        check_vals("train", fit_vals, captured=captured(dev))
         check(replay_counts()[0] > 0,
               f"train: the sampling evaluation ran no graph replay")
         check(check_calls("train", fit_calls) == trainer.global_step > 0,
@@ -2543,10 +2632,26 @@ def phase_train(dev, profile: bool = False, config_fn=train_config,
                                   f"evaluations in 2 epochs, expected 1")
 
         first = Trainer(config1, f"{tmp}/run", device=dev)
-        first_calls: list = []
+        first_calls, first_vals = [], []
         count_calls(first, first_calls)
+        count_validations(first, first_vals)
         first_model = model_from_config(config1, device=dev)
+        t0 = time.perf_counter()
         first.fit(first_model, data_module_from_config(config1))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        check_vals("train first epoch", first_vals, captured=captured(dev))
+        # the same epoch with validation eager, as before it was captured
+        eager_fit = Trainer(config1, f"{tmp}/eager_validation", device=dev)
+        eager_vals: list = []
+        count_validations(eager_fit, eager_vals)
+        with eager_validation():
+            t0 = time.perf_counter()
+            eager_fit.fit(model_from_config(config1, device=dev),
+                          data_module_from_config(config1))
+            torch.cuda.synchronize()
+            eager_s = time.perf_counter() - t0
+        check_vals("train eager validation", eager_vals, captured=False)
         state, meta = RunCheckpointer(f"{tmp}/run").restore("last")
         check(all(torch.equal(state["model"][k], v.cpu())
                   for k, v in first_model.state_dict().items()),
@@ -2554,8 +2659,9 @@ def phase_train(dev, profile: bool = False, config_fn=train_config,
         cmp = card_vs_cpu_step(first_model,
                                next(iter(dm.train_dataloader(0))))
         resumed = Trainer(config, f"{tmp}/run", device=dev)
-        resumed_calls: list = []
+        resumed_calls, resumed_vals = [], []
         count_calls(resumed, resumed_calls)
+        count_validations(resumed, resumed_vals)
         resumed_model = model_from_config(config, device=dev, seed=1)
         dm_resumed = data_module_from_config(config)
         start_data_rng(dm_resumed, kept["states"])
@@ -2566,6 +2672,7 @@ def phase_train(dev, profile: bool = False, config_fn=train_config,
               f"{resumed.global_step}")
         check_calls("train first epoch", first_calls)
         check_calls("train resumed", resumed_calls)
+        check_vals("train resumed", resumed_vals, captured=captured(dev))
         # the resumed epoch against the same steps without a stop
         got = {r["step"]: r["train total loss"]
                for r in fit_records(f"{tmp}/run")
@@ -2601,8 +2708,16 @@ def phase_train(dev, profile: bool = False, config_fn=train_config,
           f"from 'last'), batch {trainer.batch_size}, pocket slots "
           f"{sorted({max(64, -(-n // 64) * 64) for n in slots})} (atoms "
           f"{min(slots)}-{max(slots)}); the 2-epoch fit "
-          f"{calls_summary(fit_calls)}, resumed "
-          f"{calls_summary(resumed_calls)}; train steps/s over "
+          f"{calls_summary(fit_calls)} and {vals_summary(fit_vals)}, "
+          f"resumed {calls_summary(resumed_calls)} and "
+          f"{vals_summary(resumed_vals)}; {PER_VAL} a validation batch as "
+          f"captured launches x replays; the first epoch "
+          f"{first_s:.3f} s with {vals_summary(first_vals)}, validation "
+          f"{sum(v['wall'] for v in first_vals) / first_s:.4f} of the "
+          f"fit's wall, again with validation eager {eager_s:.3f} s with "
+          f"{vals_summary(eager_vals)}, validation "
+          f"{sum(v['wall'] for v in eager_vals) / eager_s:.4f} of the "
+          f"fit's wall; train steps/s over "
           f"{len(timed_calls)} calls on kept graphs median "
           f"{float(np.median(rates)):.3f}, min {rates[0]:.3f}, max "
           f"{rates[-1]:.3f}; fit wall {fit_s:.1f} s (validation and one "
@@ -2611,16 +2726,17 @@ def phase_train(dev, profile: bool = False, config_fn=train_config,
           f"{losses_train[-1]:.4f}, val {meta['monitored']:.4f} after "
           f"epoch 1; {PER_STEP} a step in every call as captured launches "
           f"x replays; the 2-epoch fit's wrappers counted {fit_launches} "
-          f"(graphs' warm-up steps and captures, validation, the sampling "
+          f"(graphs' warm-up steps and captures, the sampling "
           f"evaluation's capture), its train graphs replayed "
-          f"{fit_train_replayed} and its sampling evaluation's graphs "
+          f"{fit_train_replayed}, its validation graphs {fit_eval[0]} "
+          f"times {fit_eval[1]} and its sampling evaluation's graphs "
           f"{fit_replayed}; checkpoint round trip bit-equal; the resumed "
           f"epoch against 2 epochs without a stop: losses max rel "
           f"{loss_rel:.3e} (tolerance 1e-4), weights at "
           f"{resume_worst:.4f} of the train-step bound (bit-equal "
           f"{resume_equal}); {cmp}; dataset generated in {gen_s:.1f} s",
           flush=True)
-    return fit_launches, fit_replayed, fit_train_replayed
+    return fit_launches, fit_replayed, fit_train_replayed, fit_eval
 
 
 # -------------------------------------------------------------- trainstep
@@ -2865,6 +2981,243 @@ def phase_trainstep(dev, profile: bool = False, cfg=None,
             "pool_bytes": graphs[0].pool_bytes, "faults": faults}
 
 
+# --------------------------------------------------------------- evalstep
+
+# the wrappers' launches of one validation batch: eval mode runs the
+# compact prot tail, so K2 runs once at full width and once over the
+# pf-listed atoms, and no gradient means no K3
+PER_VAL = {"knn_select": 1, "pp_message": 2, "pp_message_bwd": 0}
+EVAL_RTOL = 1e-5
+
+
+def read_eval_replayed() -> tuple:
+    """(validation graph replays, the launches they ran per kernel: each
+    graph's captured launches x its replays)."""
+    from pharmaforge_tpu_torch.models import diffusion
+    return diffusion.eval_graph_replays, {
+        name: diffusion.eval_replayed_launches[name] for name in KERNELS}
+
+
+def metric_miss(want: dict, got: dict) -> float:
+    """How far `got`'s metrics lie from `want`'s in units of rtol 1e-5:
+    the worst |g - w| / (1e-5 |w|); equal values count 0, a non-finite
+    miss infinite."""
+    worst = 0.0
+    for k, w in want.items():
+        err = abs(float(got[k]) - float(w))
+        if err == 0:
+            continue
+        ratio = err / (EVAL_RTOL * abs(float(w))) if w else float("inf")
+        worst = max(worst, ratio if np.isfinite(ratio) else float("inf"))
+    return worst
+
+
+def eval_graphs(model) -> list:
+    """The validation graphs kept on `model` (`train_state.EvalGraphs`)."""
+    return list(getattr(model, "_eval_graphs", {}).values())
+
+
+@contextlib.contextmanager
+def frozen_weights():
+    """A planted fault inside the block: a validation graph built there
+    captures a copy of the model's weights as they are at capture (and
+    keeps the model's storage addresses as its key), so its replays miss
+    every train call after it."""
+    from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
+    from pharmaforge_tpu_torch.training import train_state
+    real = train_state.EvalGraphs
+
+    class FrozenWeights(real):
+        def __init__(self, model, *args):
+            frozen = PharmacophoreDiffusion(model.config, device=model.device)
+            frozen.load_state_dict(model.state_dict())
+            super().__init__(frozen, *args)
+            self.addrs = train_state._weight_addrs(model)
+
+    train_state.EvalGraphs = FrozenWeights
+    try:
+        yield
+    finally:
+        train_state.EvalGraphs = real
+
+
+@contextlib.contextmanager
+def stale_val_batches(model):
+    """A planted fault inside the block: `model`'s kept validation graphs
+    replay without the new batch copied in."""
+    kept = eval_graphs(model)
+    for graphs in kept:
+        graphs.load = lambda *args: None
+    try:
+        yield
+    finally:
+        for graphs in kept:
+            del graphs.load
+
+
+@contextlib.contextmanager
+def eager_validation():
+    """Inside the block `Trainer.validate` runs every batch eagerly
+    (`train_state.eager_eval`), as it did before validation was
+    captured."""
+    from pharmaforge_tpu_torch.training import train_state, trainer
+    real = trainer.eval_metrics
+    trainer.eval_metrics = train_state.eager_eval
+    try:
+        yield
+    finally:
+        trainer.eval_metrics = real
+
+
+def eager_val(setup, batch) -> dict:
+    """`batch`'s validation metrics from an eager forward of `setup`'s
+    model (`train_state.eager_eval`), as floats."""
+    from pharmaforge_tpu_torch.training.train_state import eager_eval
+    model, _, gen = setup
+    names, out = eager_eval(model, batch, gen)
+    return dict(zip(names, out.tolist()))
+
+
+def captured_val(setup, batch) -> dict:
+    """`batch`'s validation metrics through `train_state.eval_step` (a
+    CUDA graph replay on the card), as floats."""
+    from pharmaforge_tpu_torch.training.train_state import eval_step
+    model, _, gen = setup
+    return eval_step(model, batch, gen)
+
+
+def sync_setup(dst, src) -> None:
+    """`src`'s weights and generator state into `dst`, in place."""
+    dst[0].load_state_dict(src[0].state_dict())
+    dst[2].set_state(src[2].get_state())
+
+
+def evalstep_cases(dev, model, buckets: dict, train: list) -> tuple:
+    """Captured validation batches against eager ones from equal weights
+    and generator states: each batch of every bucket in two turns, then
+    after a captured train call on the kept graphs; exact counts; the two
+    planted faults. Returns (case lines, fault misses, the (eager,
+    captured) pair, in step)."""
+    lines, faults = [], {}
+    pair = train_setup(model), train_setup(model)
+
+    def compare(name, eager, graphed, batch, want_counts=True):
+        kept = {id(g) for g in eval_graphs(graphed[0])}
+        reset_launches()
+        e = eager_val(eager, batch)
+        check(read_launches() == PER_VAL,
+              f"evalstep {name}: the eager batch launched {read_launches()}"
+              f", expected {PER_VAL}")
+        reset_launches()
+        g = captured_val(graphed, batch)
+        torch.cuda.synchronize()
+        built = [x for x in eval_graphs(graphed[0]) if id(x) not in kept]
+        if want_counts:
+            replays, replayed = read_eval_replayed()
+            want = (scaled(PER_VAL, 2) if built
+                    else dict.fromkeys(KERNELS, 0), PER_VAL, 1)
+            got = (read_launches(), replayed, replays)
+            check(got == want, f"evalstep {name}: launched, replayed, "
+                               f"replays {got}, expected {want}")
+        miss = metric_miss(e, g)
+        gen_equal = torch.equal(eager[2].get_state(), graphed[2].get_state())
+        check(miss <= 1 and gen_equal,
+              f"evalstep {name}: at {miss:.3f} of rtol {EVAL_RTOL}, "
+              f"generators equal {gen_equal}")
+        made = (f"built: capture {built[0].capture_ms:.1f} ms, pool "
+                f"{built[0].pool_bytes} B" if built else "kept")
+        lines.append(f"{name} ({made}): {miss:.4f} of the tolerance")
+        return e, g
+
+    for turn in range(2):
+        for bucket, batches in buckets.items():
+            for i, batch in enumerate(batches):
+                compare(f"turn {turn} {bucket} batch {i}", *pair, batch)
+    # a captured train call moves the weights in place; the kept graphs
+    # must see them
+    captured_train_call(pair[1], train, 1e-3)
+    sync_setup(pair[0], pair[1])
+    for bucket, batches in buckets.items():
+        compare(f"after a train call {bucket}", *pair, batches[0])
+    # the planted faults: each must miss by at least 10 x the tolerance
+    bucket, batches = next(iter(buckets.items()))
+    with stale_val_batches(pair[1][0]):
+        e, g = eager_val(pair[0], batches[1]), captured_val(pair[1],
+                                                              batches[1])
+    faults["stale_val_batches"] = metric_miss(e, g)
+    frozen = train_setup(model), train_setup(model)
+    with frozen_weights():
+        compare("frozen_weights capture", *frozen, batches[0],
+                want_counts=False)
+    eager_call(frozen[1], train, 1e-3)
+    sync_setup(frozen[0], frozen[1])
+    e, g = eager_val(frozen[0], batches[0]), captured_val(frozen[1],
+                                                          batches[0])
+    faults["frozen_weights"] = metric_miss(e, g)
+    del frozen
+    for name, miss in faults.items():
+        check(miss >= 10, f"evalstep: the planted fault {name} missed by "
+                          f"only {miss:.3f} x the tolerance")
+    return lines, faults, pair
+
+
+def phase_evalstep(dev, cfg=None, batch_size: int = 32,
+                   shapes=((230, 256), (180, 192)), n: int = 3,
+                   turns: int = 2) -> dict:
+    """The validation step as one device program (`training/train_state.py
+    ::EvalGraphs`) at the bench's full-scale train shape: the train cell's
+    model, B=32 synthetic pockets of 230 atoms in 256 slots, and a second
+    bucket of 180 atoms in 192 slots, so two signatures run. Each batch
+    eager and captured from equal weights and generator states (every
+    metric within rtol 1e-5, the generators' states equal), over the
+    calls that build the two graphs, calls on the kept graphs and calls
+    after a captured train call; exactly 1 K1, 2 K2 and 0 K3 a batch as
+    captured launches x replays, none outside a kept graph's replay; the
+    planted faults `stale_val_batches` (replayed without the new batch)
+    and `frozen_weights` (captured on a copy of the weights, replayed
+    after a train call) each at least 10 x the tolerance away;
+    validation batches/s eager against captured in alternating turns,
+    capture ms and pool bytes of each graph."""
+    model = trainstep_model(dev, cfg)
+    buckets = {f"P={slots}": train_batches(n, batch_size, atoms, slots,
+                                           seed=10 + i)
+               for i, (atoms, slots) in enumerate(shapes)}
+    train = train_batches(1, batch_size, *shapes[0], seed=20)
+    lines, faults, (eager, graphed) = evalstep_cases(dev, model, buckets,
+                                                     train)
+    graphs = eval_graphs(graphed[0])
+    check(len(graphs) == len(buckets), f"evalstep: {len(graphs)} kept "
+                                       f"graphs for {len(buckets)} buckets")
+    every = [b for batches in buckets.values() for b in batches]
+    rates = {"eager": [], "captured": []}
+    order = ["eager", "captured", "captured", "eager"] * turns
+    for name in order[:2 * turns]:
+        run, setup = ((eager_val, eager) if name == "eager"
+                      else (captured_val, graphed))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in every:
+            run(setup, batch)
+        torch.cuda.synchronize()
+        rates[name].append(len(every) / (time.perf_counter() - t0))
+    made = {f"P={g.inputs['prot_x'].shape[1]}":
+            {"capture_ms": round(g.capture_ms, 1), "pool_bytes": g.pool_bytes}
+            for g in graphs}
+    print(f"evalstep: on {card()}: B={batch_size}, buckets "
+          f"{list(buckets)}, {n} batches each: " + "; ".join(lines)
+          + f"; planted faults {json.dumps(faults)} x the tolerance (at "
+          f"least 10); {PER_VAL} a batch as captured launches x replays, "
+          f"none outside a kept graph's replay; validation batches/s in "
+          f"turns {order[:2 * turns]} over {len(every)} batches: eager "
+          f"{' '.join(f'{r:.3f}' for r in rates['eager'])}, captured "
+          f"{' '.join(f'{r:.3f}' for r in rates['captured'])}; "
+          f"{len(graphs)} kept graphs {json.dumps(made)} (capture includes "
+          f"the warm-up forward; one pool for the model's graphs)",
+          flush=True)
+    return {"eager": rates["eager"], "captured": rates["captured"],
+            "graphs": made, "faults": faults}
+
+
 # ------------------------------------------------------------------ bench
 
 # the keys of `python -m pharmaforge_tpu_torch.bench`'s line at its default
@@ -2934,7 +3287,8 @@ def dist_setup(data_dir: str, run_dir: str, device: str, backend,
     of `sample_cfg` with the trained weights. Returns (launches per
     train call (`record_call`), the weights after the fit, the sampled
     dense centres, the rank, the chain's graph replays on this rank, the
-    train steps' mode, `train_state.step_mode`)."""
+    train steps' mode, `train_state.step_mode`, the validations' records
+    (`record_validation`))."""
     from pharmaforge_tpu_torch.config.load_from_config import (
         data_module_from_config, model_from_config)
     from pharmaforge_tpu_torch.models import diffusion
@@ -2946,8 +3300,9 @@ def dist_setup(data_dir: str, run_dir: str, device: str, backend,
            mesh.init_distributed(device=device, backend=backend))
     config = config_fn(data_dir)
     trainer = Trainer(config, run_dir, device=dev)
-    calls: list = []
+    calls, vals = [], []
     count_calls(trainer, calls)
+    count_validations(trainer, vals)
     model = model_from_config(config, device=dev)
     trainer.fit(model, data_module_from_config(config))
     weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
@@ -2959,7 +3314,7 @@ def dist_setup(data_dir: str, run_dir: str, device: str, backend,
     sampler.sample_stacked(pockets, [sizes] * len(pockets),
                            torch.Generator(device=dev).manual_seed(7))
     return (calls, weights, sampler.last_output["pharm_x"], mesh.rank(),
-            diffusion.graph_replays - replays, step_mode(dev))
+            diffusion.graph_replays - replays, step_mode(dev), vals)
 
 
 def weights_close(got: dict, want: dict) -> tuple:
@@ -2991,7 +3346,10 @@ def phase_dist(dev, config_fn=dist_config, samples_per_split: int = 24,
     two ranks on one device). Each rank runs exactly 1 K1, 2 K2 and 2 K3
     per optimizer step (`check_calls`): captured without a group and as
     the NCCL rank, eagerly on the two gloo ranks (gloo's all-reduce
-    cannot be captured; each rank's mode is printed); the weights after
+    cannot be captured; each rank's mode is printed), and likewise 1 K1,
+    2 K2 and 0 K3 per validation batch, each batch a replay without a
+    group and on the NCCL rank (its all-reduces inside the graph), eager
+    on the gloo ranks (`check_vals`); the weights after
     the fit agree with the
     no-group run's at the fp32 train-step tolerance per leaf (whether the
     NCCL run's are bit-equal is printed); rank 0 alone writes (the run
@@ -3024,6 +3382,8 @@ def phase_dist(dev, config_fn=dist_config, samples_per_split: int = 24,
         check(alone_steps > 0 and all(c["captured"] == (dev.type == "cuda")
                                       for c in alone[0]),
               f"dist: without a group {calls_summary(alone[0])}")
+        alone_batches = check_vals("dist without a group", alone[6],
+                                   captured=dev.type == "cuda")
         # the control: the same run again, still without a group
         again = weights_close(dist_setup(data, f"{tmp}/again", where, None,
                                          *args)[1], alone[1])
@@ -3058,7 +3418,7 @@ def phase_dist(dev, config_fn=dist_config, samples_per_split: int = 24,
             check(rel <= 1e-4, f"dist {name}: metrics within {rel:.3e}")
             worst, equal, sample_dev = 0.0, True, 0.0
             modes = []
-            for calls, weights, centres, r, replays, mode in ranks:
+            for calls, weights, centres, r, replays, mode, vals in ranks:
                 want_captured = dev.type == "cuda" and name == "nccl"
                 check(check_calls(f"dist {name} rank {r}", calls)
                       == alone_steps and all(
@@ -3066,6 +3426,10 @@ def phase_dist(dev, config_fn=dist_config, samples_per_split: int = 24,
                       f"dist {name} rank {r}: {calls_summary(calls)}, "
                       f"expected {alone_steps} steps, captured "
                       f"{want_captured}")
+                check(check_vals(f"dist {name} rank {r}", vals,
+                                 want_captured) == alone_batches,
+                      f"dist {name} rank {r}: {vals_summary(vals)}, "
+                      f"expected {alone_batches} batches")
                 modes.append(mode)
                 # each rank captures and replays its own chain
                 want_replays = (chain_replays(sample_cfg)
@@ -3085,7 +3449,9 @@ def phase_dist(dev, config_fn=dist_config, samples_per_split: int = 24,
                          f", {secs:.1f} s with start-up): {alone_steps} "
                          f"steps, train steps {sorted(set(modes))}, "
                          f"{PER_STEP} a step on every "
-                         f"rank, each rank's chain {want_replays} graph "
+                         f"rank, validation {PER_VAL} a batch on every "
+                         f"rank, rank 0 {vals_summary(ranks[0][6])}, "
+                         f"each rank's chain {want_replays} graph "
                          f"replays, weights at {worst:.4f} of the train-step "
                          f"bound (bit-equal {equal}), metrics max rel "
                          f"{rel:.3e}, files as the no-group run's, "
@@ -3094,7 +3460,8 @@ def phase_dist(dev, config_fn=dist_config, samples_per_split: int = 24,
     fit_launches = {k: sum(c["launched"][k] for c in runs["gloo"][0][0][0])
                     for k in KERNELS}
     print(f"dist: {card() if dev.type == 'cuda' else where}: no process "
-          f"group {alone_s:.1f} s (train steps {alone[5]}), run again without a group: weights at "
+          f"group {alone_s:.1f} s (train steps {alone[5]}; "
+          f"{vals_summary(alone[6])}), run again without a group: weights at "
           f"{again[0]:.4f} of the train-step bound (bit-equal {again[1]}); "
           + "; ".join(lines)
           + f"; rank 0 of the two gloo ranks launched {fit_launches} in "
@@ -3122,27 +3489,36 @@ def cli_config(tmp: Path) -> dict:
 
 
 @contextlib.contextmanager
-def cli_counters(calls: list, k_outs: list):
+def cli_counters(calls: list, k_outs: list, vals: list | None = None):
     """Inside the block, each train call's record (`record_call`) goes to
-    `calls`, for the trainers a CLI builds, and each `pp_k_out` that
-    `PocketSampler` probes to `k_outs`."""
+    `calls` and each validation's (`record_validation`) to `vals`, for the
+    trainers a CLI builds, and each `pp_k_out` that `PocketSampler`
+    probes to `k_outs`."""
     from pharmaforge_tpu_torch.training.sampling import PocketSampler
     from pharmaforge_tpu_torch.training.trainer import Trainer
     real_call, real_probe = Trainer.train_call, PocketSampler._pp_k_out
+    real_validate = Trainer.validate
+    vals = [] if vals is None else vals
 
     def call(self, batches):
         return record_call(self, lambda b: real_call(self, b), batches,
                            calls)
+
+    def validate(self, datamodule):
+        return record_validation(self, lambda d: real_validate(self, d),
+                                 datamodule, vals)
 
     def probe(self, batch, group):
         k_outs.append(real_probe(self, batch, group))
         return k_outs[-1]
 
     Trainer.train_call, PocketSampler._pp_k_out = call, probe
+    Trainer.validate = validate
     try:
         yield
     finally:
         Trainer.train_call, PocketSampler._pp_k_out = real_call, real_probe
+        Trainer.validate = real_validate
 
 
 @contextlib.contextmanager
@@ -3275,7 +3651,9 @@ def phase_cli(dev, config_fn=cli_config, samples: tuple = (8, 30)) -> dict:
     * train: `--config` for one epoch on the synthetic set it writes,
       `config.yaml` read back as the merged config, `metrics.jsonl` and
       `checkpoints/last/model.pt`, exactly 1 K1, 2 K2 and 2 K3 a step
-      as each train call's graph replays them (`check_calls`); then
+      as each train call's graph replays them (`check_calls`) and 1 K1,
+      2 K2 and 0 K3 a validation batch as its graph replays them
+      (`check_vals`), nothing launched outside the two; then
       `--resume` with `max_epochs` 2, the step
       count going on from the first fit;
     * export: `interop.export_reference_checkpoint` writes
@@ -3306,6 +3684,7 @@ def phase_cli(dev, config_fn=cli_config, samples: tuple = (8, 30)) -> dict:
     from pharmaforge_tpu_torch.interop import (
         export_reference_checkpoint, load_torch_checkpoint)
     from pharmaforge_tpu_torch.models.diffusion import DiffusionConfig
+    from pharmaforge_tpu_torch.training.train_state import captured
 
     dev_arg = ["--device", str(dev)]
     total = dict.fromkeys(KERNELS, 0)
@@ -3315,8 +3694,8 @@ def phase_cli(dev, config_fn=cli_config, samples: tuple = (8, 30)) -> dict:
         config = config_fn(tmp)
         dump_file(config, tmp / "cli.yml")
 
-        calls, k_outs = [], []
-        with cli_counters(calls, k_outs):
+        calls, k_outs, vals = [], [], []
+        with cli_counters(calls, k_outs, vals):
             run, fit, fit_s, _ = run_cli(
                 train.main, ["--config", tmp / "cli.yml", "--seed", "1",
                              *dev_arg])
@@ -3341,17 +3720,26 @@ def phase_cli(dev, config_fn=cli_config, samples: tuple = (8, 30)) -> dict:
               == sum(c["launched"]["pp_message_bwd"] for c in calls),
               f"cli train: {fit['pp_message_bwd']} K3 launches outside "
               f"the train calls' {calls_summary(calls)}")
+        on_card = captured(dev)
+        check_vals("cli train", vals, captured=on_card)
+        check(fit == {k: sum(c["launched"][k] for c in calls + vals)
+                      for k in KERNELS},
+              f"cli train: wrapper counts {fit} outside the train calls and "
+              f"validations")
         lines.append(f"train CLI: {steps} steps of batch "
                      f"{config['training']['batch_size']} in 1 epoch "
                      f"(dataset written by the CLI), {calls_summary(calls)}"
-                     f", {fit_s} s wall, wrapper counts {fit} (the graphs' "
-                     f"warm-up steps and captures, validation), replayed "
-                     f"{read_train_replayed()}")
+                     f", {vals_summary(vals)}, {fit_s} s wall, wrapper "
+                     f"counts {fit} (the train and validation graphs' "
+                     f"warm-ups and captures), replayed "
+                     f"{read_train_replayed()} in train and "
+                     f"{read_eval_replayed()[1]} in validation graphs")
 
         saved["training"]["trainer_args"]["max_epochs"] = 2
         dump_file(saved, run / "config.yaml")
         calls.clear()
-        with cli_counters(calls, k_outs):
+        vals.clear()
+        with cli_counters(calls, k_outs, vals):
             _, resumed, resume_s, _ = run_cli(
                 train.main, ["--resume", run, *dev_arg])
         meta = json.loads((run / "checkpoints" / "last" / "meta.json")
@@ -3363,12 +3751,15 @@ def phase_cli(dev, config_fn=cli_config, samples: tuple = (8, 30)) -> dict:
               f"cli resume: step {meta['step']}, epoch {meta['epoch']}, "
               f"first new step {new[0]['step']} after {steps} steps")
         check(check_calls("cli resume", calls) == steps
-              and resumed["pp_message_bwd"]
-              == sum(c["launched"]["pp_message_bwd"] for c in calls),
-              f"cli resume: {calls_summary(calls)}, K3 {resumed}")
+              and check_vals("cli resume", vals, captured=on_card) > 0
+              and resumed == {k: sum(c["launched"][k] for c in calls + vals)
+                              for k in KERNELS},
+              f"cli resume: {calls_summary(calls)}, {vals_summary(vals)}, "
+              f"wrapper counts {resumed}")
         lines.append(f"train CLI --resume: steps {steps + 1}-{2 * steps} "
-                     f"(epoch 2), {calls_summary(calls)}, {resume_s} s "
-                     f"wall, wrapper counts {resumed}")
+                     f"(epoch 2), {calls_summary(calls)}, "
+                     f"{vals_summary(vals)}, {resume_s} s wall, wrapper "
+                     f"counts {resumed}")
 
         ckpt = export_reference_checkpoint(run)
         cfg = DiffusionConfig.from_config(saved)
@@ -3822,7 +4213,9 @@ def phase_preprocess(dev, pairs: int = 96, workers: int = 4,
       slots), beside the fit's median host wall of a step;
     * the train CLI fits `config_fn`'s model (the train cell's) for one
       epoch on the processed set on `dev`: exactly 1 K1, 2 K2 and 2 K3
-      in every step (`check_calls`); the first K1 call and the first K2 call of
+      in every step (`check_calls`), 1 K1, 2 K2 and 0 K3 in every
+      validation batch, each a graph replay (`check_vals`); the first K1
+      call and the first K2 call of
       each layout (the train steps' and validation's) against their plain
       versions (`check_cli_kernels`) and K3 on the first train-step K2
       call's inputs against the plain version in fp64 (`ppbwd_*`);
@@ -3841,6 +4234,7 @@ def phase_preprocess(dev, pairs: int = 96, workers: int = 4,
         make_synthetic_processed_dataset)
     from pharmaforge_tpu_torch.losses import distance_hinge_loss
     from pharmaforge_tpu_torch.models.diffusion import DiffusionConfig
+    from pharmaforge_tpu_torch.training.train_state import captured
     from pharmaforge_tpu_torch import native
 
     check(not torch.cuda.is_initialized(), "preprocess: CUDA is already "
@@ -3882,8 +4276,9 @@ def phase_preprocess(dev, pairs: int = 96, workers: int = 4,
 
         # the fit on the card
         dump_file(config, tmp / "run.yml")
-        train_calls, k_outs, calls = [], [], {}
-        with cli_counters(train_calls, k_outs), cli_kernel_calls(calls):
+        train_calls, k_outs, calls, vals = [], [], {}, []
+        with cli_counters(train_calls, k_outs, vals), \
+                cli_kernel_calls(calls):
             run, fit, fit_s, _ = run_cli(
                 train.main, ["--config", tmp / "run.yml", "--seed", "1",
                              "--device", str(dev)])
@@ -3894,8 +4289,14 @@ def phase_preprocess(dev, pairs: int = 96, workers: int = 4,
                                                  train_calls),
               f"preprocess fit: {steps} steps (expected {want_steps}), "
               f"{calls_summary(train_calls)}")
+        check_vals("preprocess fit", vals, captured=captured(dev))
+        check(fit == {k: sum(c["launched"][k] for c in train_calls + vals)
+                      for k in KERNELS},
+              f"preprocess fit: wrapper counts {fit} outside the train "
+              f"calls and validations")
         # two K2 layouts: the train steps' (full width) and validation's
-        # (eval mode: the compact prot tail); the first is the train step's
+        # (eval mode: the compact prot tail, kept from its graph's warm-up
+        # forward); the first is the train step's
         errs = check_cli_kernels("preprocess fit", calls, 2)
         k2_key = next(k for k in calls if k != "knn")
         args, kw, _ = calls[k2_key]
@@ -3966,9 +4367,12 @@ def phase_preprocess(dev, pairs: int = 96, workers: int = 4,
           f"median us over {pack_calls} calls {json.dumps(packs)}; train "
           f"CLI on {where}: {steps} steps of batch "
           f"{config['training']['batch_size']} in 1 epoch, {fit_s:.2f} s "
-          f"wall, {calls_summary(train_calls)}, median host wall of a "
+          f"wall, {calls_summary(train_calls)}, {vals_summary(vals)}, "
+          f"median host wall of a "
           f"step {step_wall:.1f} us over the calls on kept graphs, wrapper "
-          f"counts {fit}, {PER_STEP} a step in every call; first calls vs their plain versions, "
+          f"counts {fit} (the graphs' warm-ups and captures), {PER_STEP} "
+          f"a step in every call, {PER_VAL} a validation batch; first "
+          f"calls vs their plain versions, "
           f"max abs err {json.dumps(errs)}; test CLI 1 pocket x {samples} "
           f"at T={sample_steps}: {test_s:.2f} s wall, launches {sampled}, "
           f"pp_k_out {k_outs}, {pocket_files}; hinge loss {dev} vs CPU "
@@ -4014,21 +4418,25 @@ def main() -> int:
     tables_launches = timed(phase_tables, dev, per_step=per_step)
     ppbwd = timed(phase_ppbwd, dev)
     timed(phase_trainstep, dev, profile)
-    train_launches, train_replayed, train_graphs = timed(phase_train, dev,
-                                                         profile)
+    timed(phase_evalstep, dev)
+    train_launches, train_replayed, train_graphs, (val_replays, val_graphs) \
+        = timed(phase_train, dev, profile)
     dist_launches = timed(phase_dist, dev)
     cli_launches = timed(phase_cli, dev)
     timed(phase_bench, dev)
     kernels = [knn, pp, ppbwd]
     for kern in kernels:
         # `launches`: the 2-epoch training run, as the wrappers count
-        # (its train graphs' warm-up steps and captures, validation, its
+        # (its train and validation graphs' warm-ups and captures, its
         # sampling chain's capture)
         kern["launches"] = train_launches[kern["name"]]
         # the launches below: each graph's captured launches x its
         # replays (`diffusion.train_replayed_launches` for the fit's train
+        # graphs, `diffusion.eval_replayed_launches` for its validation
         # graphs, `diffusion.replayed_launches` for the chains)
         kern["launches_train_replayed_fit"] = train_graphs[kern["name"]]
+        kern["launches_eval_replayed_fit"] = val_graphs[kern["name"]]
+        kern["eval_graph_replays_fit"] = val_replays
         kern["launches_replayed_fit"] = train_replayed[kern["name"]]
         kern["graph_replays_fullscale_chain"] = chain_replays(full_config())
         kern["graph_replays_dev_chain"] = chain_replays(dev_config())

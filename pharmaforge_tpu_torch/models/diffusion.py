@@ -764,6 +764,9 @@ replayed_launches = {"knn_select": 0, "pp_message": 0, "pp_message_bwd": 0,
 # the same for captured train steps (`training/train_state.py::TrainGraphs`)
 train_graph_replays = 0
 train_replayed_launches = dict.fromkeys(replayed_launches, 0)
+# and for captured validation batches (`training/train_state.py::EvalGraphs`)
+eval_graph_replays = 0
+eval_replayed_launches = dict.fromkeys(replayed_launches, 0)
 
 
 @contextlib.contextmanager
@@ -791,13 +794,17 @@ def launch_counts() -> Dict[str, int]:
 
 
 def add_replays(counts: Dict[str, int], replays: int,
-                train: bool = False) -> None:
-    """Count `replays` replays of a graph whose capture recorded `counts`
-    (chain graphs, or train graphs with `train`)."""
-    global graph_replays, train_graph_replays
-    if train:
+                kind: str = "chain") -> None:
+    """Count `replays` replays of a graph whose capture recorded `counts`:
+    a chain graph, a train graph (`kind` "train") or a validation graph
+    ("eval")."""
+    global graph_replays, train_graph_replays, eval_graph_replays
+    if kind == "train":
         train_graph_replays += replays
         launched = train_replayed_launches
+    elif kind == "eval":
+        eval_graph_replays += replays
+        launched = eval_replayed_launches
     else:
         graph_replays += replays
         launched = replayed_launches

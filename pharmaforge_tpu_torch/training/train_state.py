@@ -6,14 +6,17 @@ optimizer steps as one call, each differentiating the masked diffusion
 loss and applying (or, with gradient accumulation, accumulating) the Adam
 update at the call's one learning rate, and the K steps' metrics back in
 one device-to-host copy. `train_step` is a call of one step; `eval_step`
-computes the validation metrics with dropout off and no gradient.
+(the counterpart of `make_eval_step`, :110-117) computes one validation
+batch's metrics with dropout off and no gradient.
 
 On the card a call is one replay of a CUDA graph of its K steps
 (`TrainGraphs`: forward, the kernels K1 and K2, the backward with K3 and
-the Adam update all captured), kept per signature on the optimizer. On
-the CPU, and under a gloo process group (whose all-reduce a graph cannot
-hold), the same K steps run eagerly in one call; `captured` decides, and
-`step_mode` says which in words.
+the Adam update all captured), kept per signature on the optimizer, and a
+validation batch one replay of a graph of its forward (`EvalGraphs`, K1
+and K2 captured), kept per signature on the model. On the CPU, and under
+a gloo process group (whose all-reduce a graph cannot hold), the same
+work runs eagerly; `captured` decides, and `step_mode` says which in
+words.
 
 Under data parallelism (`rows`, see `PharmacophoreDiffusion.loss`) each
 rank differentiates its share of the global loss and the gradients are
@@ -45,9 +48,9 @@ _FIELDS = [f.name for f in dataclasses.fields(PharmComplexBatch)]
 
 
 def captured(device) -> bool:
-    """Whether train steps on `device` run as CUDA graph replays: on CUDA
-    without a process group or in an NCCL one (a gloo all-reduce cannot be
-    captured)."""
+    """Whether train steps and validation batches on `device` run as CUDA
+    graph replays: on CUDA without a process group or in an NCCL one (a
+    gloo all-reduce cannot be captured)."""
     if torch.device(device).type != "cuda":
         return False
     return not dist.is_initialized() or dist.get_backend() == "nccl"
@@ -147,16 +150,43 @@ def train_step(model: PharmacophoreDiffusion, optimizer: Adam,
     return {k: float(v[0]) for k, v in out.items()}
 
 
-@torch.no_grad()
 def eval_step(model: PharmacophoreDiffusion, batch: PharmComplexBatch,
               generator: torch.Generator,
               rows: Optional[Tuple[int, int]] = None) -> Dict[str, float]:
     """Validation metrics: dropout off, fresh diffusion noise; the global
-    batch's with `rows`."""
+    batch's with `rows`. Returns them as floats."""
+    names, out = eval_metrics(model, batch, generator, rows)
+    return dict(zip(names, out.tolist()))
+
+
+def eval_metrics(model: PharmacophoreDiffusion, batch: PharmComplexBatch,
+                 generator: torch.Generator,
+                 rows: Optional[Tuple[int, int]] = None
+                 ) -> Tuple[List[str], torch.Tensor]:
+    """`eval_step`'s metrics left on the device: (names, values [M]).
+
+    On the card the batch replays a CUDA graph (`EvalGraphs`), captured at
+    the first call of its signature and kept on the model; the values are
+    the graph's output, which its next replay overwrites. A capture that
+    fails raises. Elsewhere (`captured`) the forward runs eagerly."""
+    if captured(model.device):
+        graphs = _eval_graphs_for(model, batch, generator, rows)
+        graphs.load(batch)
+        return graphs.names, graphs.run()
+    return eager_eval(model, batch, generator, rows)
+
+
+@torch.no_grad()
+def eager_eval(model: PharmacophoreDiffusion, batch: PharmComplexBatch,
+               generator: torch.Generator,
+               rows: Optional[Tuple[int, int]] = None
+               ) -> Tuple[List[str], torch.Tensor]:
+    """One validation batch's forward run eagerly, on any device: (metric
+    names, their values [M] on the device). The path of the CPU and of
+    gloo ranks; on the card, what a replay is held against."""
     _, aux = model.loss(batch, generator, train=False, phase="val",
                         rows=rows)
-    vals = _vector(aux).tolist()
-    return dict(zip(aux, vals))
+    return list(aux), _vector(aux)
 
 
 # ------------------------------------------------------------ the runner
@@ -173,6 +203,45 @@ def _state_tensors(model: PharmacophoreDiffusion,
             *optimizer._acc, *lr]
 
 
+def _shapes(batch: PharmComplexBatch) -> tuple:
+    """Every field's name, shape and dtype: a graph's input signature."""
+    return tuple((name, np.shape(getattr(batch, name)),
+                  np.asarray(getattr(batch, name)).dtype.str)
+                 for name in _FIELDS)
+
+
+def _warm_up(dev, fn):
+    """`fn()` on a new side stream that starts after the current stream's
+    work, which then waits for it: first-use work outside any graph."""
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        out = fn()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    return out
+
+
+def _capture(dev, generator: torch.Generator, pool, body) -> tuple:
+    """`body()` captured into a new CUDA graph in memory pool `pool`, with
+    `generator` registered and Python's cyclic collector paused
+    (`diffusion.collector_paused`). Returns (the graph, the launches the
+    capture recorded in the wrappers' counts, the device memory it
+    reserved)."""
+    with diffusion.collector_paused():
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        before = diffusion.launch_counts()
+        with torch.cuda.graph(graph, pool=pool):
+            body()
+        after = diffusion.launch_counts()
+        torch.cuda.synchronize(dev)
+        return (graph, {k: after[k] - before[k] for k in after},
+                torch.cuda.memory_reserved(dev) - reserved)
+
+
 def _graphs_for(model: PharmacophoreDiffusion, optimizer: Adam,
                 batches: PharmComplexBatch, generator: torch.Generator,
                 rows) -> "TrainGraphs":
@@ -185,10 +254,8 @@ def _graphs_for(model: PharmacophoreDiffusion, optimizer: Adam,
     if any(g.addrs != addrs for g in kept.values()):
         kept.clear()
         optimizer.graph_pool = None
-    shapes = tuple((name, np.shape(getattr(batches, name)),
-                    np.asarray(getattr(batches, name)).dtype.str)
-                   for name in _FIELDS)
-    key = (shapes, optimizer.mini_step, rows, id(model), id(generator))
+    key = (_shapes(batches), optimizer.mini_step, rows, id(model),
+           id(generator))
     graphs = kept.get(key)
     if graphs is None:
         graphs = TrainGraphs(model, optimizer, generator, batches, rows)
@@ -238,11 +305,7 @@ class TrainGraphs:
         with torch.cuda.device(dev):
             saved = ([t.detach().clone() for t in state],
                      generator.get_state())
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                self.names = list(self._step(0))
-            torch.cuda.current_stream(dev).wait_stream(side)
+            self.names = list(_warm_up(dev, lambda: self._step(0)))
             with torch.no_grad():
                 for t, copy in zip(state, saved[0]):
                     t.copy_(copy)
@@ -251,22 +314,10 @@ class TrainGraphs:
             optimizer.zero_grad()
             del saved
             self.out = torch.zeros((self.k, len(self.names)), device=dev)
-            with diffusion.collector_paused():
-                torch.cuda.synchronize(dev)
-                torch.cuda.empty_cache()
-                reserved = torch.cuda.memory_reserved(dev)
-                if optimizer.graph_pool is None:
-                    optimizer.graph_pool = torch.cuda.graph_pool_handle()
-                self.graph = torch.cuda.CUDAGraph()
-                self.graph.register_generator_state(generator)
-                before = diffusion.launch_counts()
-                with torch.cuda.graph(self.graph, pool=optimizer.graph_pool):
-                    self._body()
-                after = diffusion.launch_counts()
-                torch.cuda.synchronize(dev)
-                self.pool_bytes = (torch.cuda.memory_reserved(dev)
-                                   - reserved)
-            self.counts = {k: after[k] - before[k] for k in after}
+            if optimizer.graph_pool is None:
+                optimizer.graph_pool = torch.cuda.graph_pool_handle()
+            self.graph, self.counts, self.pool_bytes = _capture(
+                dev, generator, optimizer.graph_pool, self._body)
             optimizer.mini_step = self.phase
         self.capture_ms = (time.perf_counter() - t0) * 1e3
 
@@ -299,5 +350,103 @@ class TrainGraphs:
                                f"at phase {opt.mini_step}")
         self.graph.replay()
         opt.mini_step = (self.phase + self.k) % opt.accumulate
-        diffusion.add_replays(self.counts, 1, train=True)
+        diffusion.add_replays(self.counts, 1, kind="train")
+        return self.out
+
+
+# ------------------------------------------------- the validation runner
+
+def _weight_addrs(model: PharmacophoreDiffusion) -> tuple:
+    """The storage addresses of every weight and buffer of `model`."""
+    return tuple(t.data_ptr() for t in (*model.parameters(),
+                                        *model.buffers()))
+
+
+def _eval_graphs_for(model: PharmacophoreDiffusion, batch: PharmComplexBatch,
+                     generator: torch.Generator, rows) -> "EvalGraphs":
+    """The kept validation graph of this batch's signature (every field's
+    shape and dtype, `rows`, the model and the generator), or a new one.
+    The graphs live on the model (`_eval_graphs`); when a weight or buffer
+    has moved to new storage since they were captured, they are freed
+    first."""
+    addrs = _weight_addrs(model)
+    kept = getattr(model, "_eval_graphs", None)
+    if kept is None or any(g.addrs != addrs for g in kept.values()):
+        kept = model._eval_graphs = {}
+    key = (_shapes(batch), rows, id(model), id(generator))
+    graphs = kept.get(key)
+    if graphs is None:
+        pool = next(iter(kept.values())).pool if kept else None
+        graphs = EvalGraphs(model, generator, batch, rows, pool)
+        kept[key] = graphs
+    return graphs
+
+
+class EvalGraphs:
+    """One validation batch's forward as a CUDA graph: the counterpart of
+    the JAX package's jitted eval step, `TrainGraphs` less the optimizer.
+
+    The graph reads the batch from input tensors of its own, which `load`
+    fills before each replay, and writes `loss(train=False, phase="val")`'s
+    metrics into `out` [M], allocated outside the graph's pool, so no
+    other graph's replay touches it. It reads the model's weights and
+    buffers in place, so a replay after any train call sees the current
+    weights, and draws the diffusion noise from `generator`, registered
+    with the graph, so a replay advances it as one eager `eager_eval`
+    does. Python state that the forward changes runs once, at capture:
+    `run` replays its effect (eval mode, which `loss` sets; the wrappers'
+    launch counts, re-based as captured launches x replays in
+    `diffusion.eval_replayed_launches`).
+
+    Before the capture the forward runs once eagerly on a side stream, so
+    first-use work (kernel builds, launch attributes, cuBLAS workspaces)
+    happens outside the graph; the generator is then restored, so that
+    run leaves no trace. The graphs of one model share one memory pool
+    (`pool`), apart from the train graphs'. `addrs` are the storage
+    addresses of the weights and buffers the graph reads, `capture_ms`
+    the host time of the warm-up and the capture, `pool_bytes` the device
+    memory the capture reserved."""
+
+    def __init__(self, model: PharmacophoreDiffusion,
+                 generator: torch.Generator, batch: PharmComplexBatch,
+                 rows: Optional[Tuple[int, int]], pool=None):
+        dev = model.device
+        self.model, self.generator, self.rows = model, generator, rows
+        self.inputs = {name: torch.from_numpy(np.array(getattr(
+            batch, name))).to(dev) for name in _FIELDS}
+        self.addrs = _weight_addrs(model)
+        t0 = time.perf_counter()
+        with torch.cuda.device(dev):
+            saved = generator.get_state()
+            self.names, _ = _warm_up(dev, lambda: eager_eval(
+                model, self._batch(), generator, rows))
+            generator.set_state(saved)
+            self.out = torch.zeros(len(self.names), device=dev)
+            self.pool = pool or torch.cuda.graph_pool_handle()
+            self.graph, self.counts, self.pool_bytes = _capture(
+                dev, generator, self.pool, self._body)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def _batch(self) -> PharmComplexBatch:
+        return PharmComplexBatch(**self.inputs)
+
+    def _body(self) -> None:
+        """The forward, writing its metrics into `out`: what the graph
+        holds."""
+        self.out.copy_(eager_eval(self.model, self._batch(), self.generator,
+                                  self.rows)[1])
+
+    def load(self, batch: PharmComplexBatch) -> None:
+        """Copy a batch of this signature into the graph's input
+        tensors."""
+        for name in _FIELDS:
+            self.inputs[name].copy_(torch.from_numpy(
+                np.asarray(getattr(batch, name))))
+
+    def run(self) -> torch.Tensor:
+        """One replay, enqueued on the current stream; returns `out`,
+        which this graph's next replay overwrites."""
+        self.graph.replay()
+        self.model.train(False)
+        diffusion.add_replays(self.counts, 1, kind="eval")
         return self.out

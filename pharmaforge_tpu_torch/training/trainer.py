@@ -31,9 +31,12 @@ learning rate, and the leftovers of each shape run singly at the epoch's
 end. The per-step bookkeeping (metrics, progress, the fractional-epoch
 validation with its plateau cut, train-time sampling) runs for each step
 after its call, on the state after the call, so a cut takes effect at the
-next call. On the card every call replays a CUDA graph of its steps; on
-the CPU and under a gloo process group the steps run eagerly
-(`train_state.captured`; the fit prints which). All randomness
+next call. On the card every call replays a CUDA graph of its steps, and
+every validation batch a graph of its forward (one per padded shape); on
+the CPU and under a gloo process group both run eagerly
+(`train_state.captured`; the fit prints which). A validation's metrics
+stay on the device until its last batch and come to the host in one
+copy. All randomness
 (diffusion noise, dropout, sampling) comes from one `torch.Generator` on
 the device, seeded with `seed`, drawn alike on every rank, and kept in
 the checkpoint.
@@ -70,7 +73,7 @@ from pharmaforge_tpu_torch.training.logging import MetricsLogger, NullLogger
 from pharmaforge_tpu_torch.training.optim import Adam, ReduceLROnPlateau
 from pharmaforge_tpu_torch.training.sampling import PocketSampler
 from pharmaforge_tpu_torch.training.train_state import (
-    eval_step,
+    eval_metrics,
     multi_train_step,
     step_mode,
 )
@@ -206,7 +209,8 @@ class Trainer:
                   f"batch {self.batch_size} | {self.max_epochs} epochs"
                   + (f" | {world()} ranks" if world() > 1 else ""))
             print(f"train steps: {self.steps_per_call} a call, "
-                  f"{step_mode(self.device)}")
+                  f"{step_mode(self.device)}; validation batches "
+                  f"likewise")
 
         while self.epoch < self.max_epochs:
             loader = datamodule.train_dataloader(seed=self.seed + self.epoch)
@@ -294,28 +298,45 @@ class Trainer:
 
     # ------------------------------------------------------------ validate
 
-    def validate(self, datamodule) -> Dict[str, float]:
-        """Validation metrics averaged over the (limited) val loader,
-        weighted by each batch's real size; in a process group each batch's
-        metrics are the global batch's (summed over the ranks)."""
-        loader = datamodule.val_dataloader(seed=self.seed)
+    def val_batch_count(self, loader) -> int:
+        """The validation batches taken from `loader`:
+        `limit_val_batches` as a fraction of them (at least one unless 0)
+        or as a count (PL's semantics)."""
         n_batches = len(loader)
         limit = self.limit_val_batches
         if isinstance(limit, float):
-            n_batches = max(int(n_batches * limit), 1) if limit > 0 else 0
-        elif limit is not None:
-            n_batches = min(n_batches, int(limit))
-        sums: Dict[str, float] = {}
-        weights = 0.0
+            return max(int(n_batches * limit), 1) if limit > 0 else 0
+        if limit is not None:
+            return min(n_batches, int(limit))
+        return n_batches
+
+    def validate(self, datamodule) -> Dict[str, float]:
+        """Validation metrics averaged over the (limited) val loader,
+        weighted by each batch's real size; in a process group each batch's
+        metrics are the global batch's (summed over the ranks). Batch i's
+        metrics go into row i of a device buffer, which comes to the host
+        in one copy after the last batch; the weighted sums are then formed
+        in batch order in Python floats."""
+        loader = datamodule.val_dataloader(seed=self.seed)
+        n_batches = self.val_batch_count(loader)
+        names, stack, sizes = [], None, []
         for batch_idx, batch in enumerate(prefetch(loader)):
             if batch_idx >= n_batches:
                 break
             batch, bs = pad_batch_to_multiple(batch, self.batch_size)
             batch, rows = local_batch(batch)
-            for k, v in eval_step(self.model, batch, self.generator,
-                                  rows).items():
+            names, out = eval_metrics(self.model, batch, self.generator,
+                                      rows)
+            if stack is None:
+                stack = out.new_empty((n_batches, len(names)))
+            stack[batch_idx].copy_(out)
+            sizes.append(bs)
+        sums: Dict[str, float] = {}
+        per_batch = stack[:len(sizes)].tolist() if sizes else []
+        for bs, vals in zip(sizes, per_batch):
+            for k, v in zip(names, vals):
                 sums[k] = sums.get(k, 0.0) + v * bs
-            weights += bs
+        weights = float(sum(sizes))
         return {k: v / max(weights, 1) for k, v in sums.items()}
 
     # -------------------------------------------------- sample_and_analyze

@@ -1,9 +1,11 @@
 """PyTorch/CUDA port on the card: the CUDA kernels (K1's two entries, K2,
 K3) against their plain versions, the golden chain through K1, the
 reverse chain as CUDA graph replays against its eager step loop, one
-full-width training step on the card against the CPU, and captured train
+full-width training step on the card against the CPU, captured train
 calls (`training/train_state.py::TrainGraphs`) against eager steps, with
-their planted faults, and a short fit that replays every step.
+their planted faults, a short fit that replays every step, and captured
+validation (`EvalGraphs`) against eager, after a train call too and in
+an NCCL group of one rank.
 
 Every test here is marked `cuda` and skips without a card. The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -438,6 +440,116 @@ def test_trainer_fit_replays_every_step(dev, tmp_path):
     assert chip_smoke.check_calls("fit", calls) == trainer.global_step
     assert all(c["captured"] for c in calls)
     assert {c["steps"] for c in calls} >= {1, 3}
+
+
+def fit_setup(dev, tmp_path):
+    """A `Trainer` on the card with a narrow train-cell model, its
+    generator and optimizer, but no fit, and a data module over a
+    synthetic set whose validation split fills two prot buckets."""
+    from pharmaforge_tpu_torch.config.load_from_config import (
+        data_module_from_config, model_from_config)
+    from pharmaforge_tpu_torch.data.synthetic import (
+        make_synthetic_processed_dataset)
+    from pharmaforge_tpu_torch.training.optim import Adam
+    from pharmaforge_tpu_torch.training.trainer import Trainer
+    data = make_synthetic_processed_dataset(
+        str(tmp_path / "data"), n_splits=3, samples_per_split=14,
+        n_prot_range=(30, 90), seed=11)
+    config = chip_smoke.train_config(str(data), max_epochs=1, batch_size=4)
+    config["dynamics"].update(n_hidden_scalars=32, vector_size=8)
+    dm = data_module_from_config(config)
+    dm.setup("fit")
+    trainer = Trainer(config, tmp_path / "run", device=dev)
+    trainer.model = model_from_config(config, device=dev)
+    trainer.generator = torch.Generator(device=dev).manual_seed(0)
+    trainer.optimizer = Adam(trainer.model.parameters(), 1e-3,
+                             weight_decay=1e-12)
+    return trainer, dm
+
+
+def validate_pair(trainer, dm) -> tuple:
+    """`trainer.validate` eagerly, then captured from the same generator
+    and dataset states: (eager metrics, captured metrics, the generators'
+    states equal after, the captured run's validation record)."""
+    gen, data = (trainer.generator.get_state(),
+                 dm.val_dataset._rng.bit_generator.state)
+    with chip_smoke.eager_validation():
+        want = trainer.validate(dm)
+    after = trainer.generator.get_state()
+    trainer.generator.set_state(gen)
+    dm.val_dataset._rng.bit_generator.state = data
+    vals: list = []
+    got = chip_smoke.record_validation(trainer, trainer.validate, dm, vals)
+    return want, got, torch.equal(after, trainer.generator.get_state()), \
+        vals[0]
+
+
+def test_captured_validation_matches_eager(dev, tmp_path):
+    """`Trainer.validate` on the card, each batch one replay of a kept
+    graph (one per bucket), against the eager batches from the same
+    generator state: every metric within rtol 1e-5, the generators'
+    states equal, 1 K1 and 2 K2 a batch replayed."""
+    trainer, dm = fit_setup(dev, tmp_path)
+    want, got, same, val = validate_pair(trainer, dm)
+    assert set(got) == set(want) and same
+    assert chip_smoke.metric_miss(want, got) <= 1, (want, got)
+    assert chip_smoke.check_vals("validate", [val], captured=True) >= 2
+    assert val["built"] == len(chip_smoke.eval_graphs(trainer.model)) == 2
+
+
+def test_captured_validation_after_a_train_call(dev, tmp_path):
+    """A validation on the kept graphs after a captured train call sees
+    the new weights: within rtol 1e-5 of the eager one, generators equal,
+    no graph built anew."""
+    from pharmaforge_tpu_torch.data.batch import pad_batch_to_multiple
+    trainer, dm = fit_setup(dev, tmp_path)
+    validate_pair(trainer, dm)
+    batch = next(iter(dm.train_dataloader(0)))
+    trainer.train_call([pad_batch_to_multiple(batch, 4)[0]])
+    want, got, same, val = validate_pair(trainer, dm)
+    assert same and chip_smoke.metric_miss(want, got) <= 1, (want, got)
+    assert val["built"] == 0 and val["replays"] == val["batches"]
+
+
+def nccl_validation(state: dict, batch) -> tuple:
+    """One rank of an NCCL group of one: the batch's validation metrics
+    eagerly and as a captured replay (its all-reduces inside the graph)
+    from equal generator states, with the rank's row range; (eager,
+    captured, generators equal, replays, `step_mode`)."""
+    from pharmaforge_tpu_torch.models import diffusion
+    from pharmaforge_tpu_torch.parallel import mesh
+    from pharmaforge_tpu_torch.training import train_state
+    dev = mesh.init_distributed(device="cuda:0", backend="nccl")
+    model = trainstep_case(dev, 1)[0]
+    model.load_state_dict(state)
+    local, rows = mesh.local_batch(batch)
+    gens = [torch.Generator(device=dev).manual_seed(2) for _ in range(2)]
+    names, out = train_state.eager_eval(model, local, gens[0], rows)
+    want = dict(zip(names, out.tolist()))
+    replays = diffusion.eval_graph_replays
+    got = train_state.eval_step(model, local, gens[1], rows)
+    return (want, got, torch.equal(*(g.get_state() for g in gens)),
+            diffusion.eval_graph_replays - replays,
+            train_state.step_mode(dev))
+
+
+def test_validation_captured_in_an_nccl_group(dev):
+    """A validation batch captured as the one rank of an NCCL group: its
+    metrics within rtol 1e-5 of the rank's eager ones and of the eager
+    ones without a group, generators equal, one replay."""
+    from pharmaforge_tpu_torch.parallel.mesh import spawn_local
+    from pharmaforge_tpu_torch.training.train_state import eager_eval
+    model, _ = trainstep_case(dev, 1)
+    batch = chip_smoke.train_batches(1, batch_size=4, atoms=40, slots=64)[0]
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    (want, got, same, replays, mode), = spawn_local(
+        1, nccl_validation, state, batch, timeout_s=300)
+    names, out = eager_eval(model, batch,
+                            torch.Generator(device=dev).manual_seed(2))
+    alone = dict(zip(names, out.tolist()))
+    assert same and replays == 1 and mode.startswith("captured"), mode
+    assert chip_smoke.metric_miss(want, got) <= 1, (want, got)
+    assert chip_smoke.metric_miss(alone, got) <= 1, (alone, got)
 
 
 def test_a_failed_capture_raises(dev):
