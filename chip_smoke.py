@@ -441,12 +441,12 @@ def knn_check(name: str, args, k: int) -> float:
     version. Each entry must launch the kernel once. Returns the geometry's
     max abs error."""
     from pharmaforge_tpu_torch.ops import knn_select as ks
-    before = ks.launches
+    before = read_launches()["knn_select"]
     got = ks.knn_select(*args, k)
     want = ks.knn_select_reference(*args, k)
     torch.cuda.synchronize()
-    check(ks.launches == before + 1, f"knn {name}: knn_select launched "
-                                     f"{ks.launches - before} kernels")
+    made = read_launches()["knn_select"] - before
+    check(made == 1, f"knn {name}: knn_select launched {made} kernels")
     for label, g, w in zip(("idx", "dist", "xg"), got, want):
         check(g.dtype == w.dtype and g.shape == w.shape,
               f"knn {name}: {label} {g.dtype}{tuple(g.shape)} vs "
@@ -456,8 +456,8 @@ def knn_check(name: str, args, k: int) -> float:
     got = ks.knn_pf_edges(*args, k)
     want = ks.knn_pf_edges_reference(*args, k)
     torch.cuda.synchronize()
-    check(ks.launches == before + 2, f"knn {name}: knn_pf_edges did not "
-                                     f"launch the kernel once")
+    check(read_launches()["knn_select"] == before + 2,
+          f"knn {name}: knn_pf_edges did not launch the kernel once")
     return knn_pf_compare(name, got, want)
 
 
@@ -502,6 +502,7 @@ def phase_knn(dev) -> dict:
     computed (KNN_EARLIER_MS, printed beside it)."""
     from pharmaforge_tpu_torch.ops import knn_select as ks
     from pharmaforge_tpu_torch.ops.geometry import RBF_DIM
+    from pharmaforge_tpu_torch.utils import trace
     cases = knn_cases(np.random.default_rng(0))
     errs = {}
     for name, arrs, k in cases:
@@ -521,7 +522,7 @@ def phase_knn(dev) -> dict:
         return lambda: floor.empty_launch(
             blocks, threads, torch.cuda.current_stream().cuda_stream)
 
-    before = ks.launches
+    before = read_launches()["knn_select"]
     times = {
         "selection": graph_ms(lambda: ks.knn_select(*args, k)),
         "fused": graph_ms(lambda: ks.knn_pf_edges(*args, k)),
@@ -532,7 +533,9 @@ def phase_knn(dev) -> dict:
         "old_eager": cuda_ms(lambda: knn_old_sequence(*args, k)),
         "plain": graph_ms(lambda: ks.knn_pf_edges_reference(*args, k)),
     }
-    ks.launches = before       # timing launches are not the main path's
+    # timing launches are not the main path's: taken back
+    trace.count("knn_select.launches",
+                before - read_launches()["knn_select"])
     d2 = torch.cdist(args[0], args[2]) ** 2
     library_ms = graph_ms(lambda: torch.topk(d2, k, largest=False))
     # least time for the same work (the fused entry): inputs read once,
@@ -674,57 +677,58 @@ def fullwidth_config():
                                compact_prot_tail=False)
 
 
-def kernel_counters():
-    """Kernel name -> (module, name of its wrapper's launch count)."""
-    from pharmaforge_tpu_torch.ops import knn_select, pp_message
-    return {"knn_select": (knn_select, "launches"),
-            "pp_message": (pp_message, "launches"),
-            "pp_message_bwd": (pp_message, "bwd_launches")}
-
-
 def reset_launches() -> None:
-    """Every kernel launch count, the correction-pass count and the chain,
-    train and validation graphs' replay counts to 0."""
-    from pharmaforge_tpu_torch.models import conv, diffusion
-    for mod, attr in kernel_counters().values():
-        setattr(mod, attr, 0)
-    conv.corrections = 0
-    diffusion.graph_replays = 0
-    diffusion.train_graph_replays = 0
-    diffusion.eval_graph_replays = 0
-    for key in diffusion.replayed_launches:
-        diffusion.replayed_launches[key] = 0
-        diffusion.train_replayed_launches[key] = 0
-        diffusion.eval_replayed_launches[key] = 0
+    """Every counter of the port's registry (`utils/trace.py`) to 0: the
+    kernels' launches, the correction passes and the chain, train and
+    validation graphs' captures and replays."""
+    from pharmaforge_tpu_torch.utils import trace
+    trace.reset()
 
 
 def read_launches() -> dict:
     """The wrappers' counts: launches made eagerly, and launches captured
-    into a chain graph (counted once, where captured)."""
-    return {name: getattr(mod, attr)
-            for name, (mod, attr) in kernel_counters().items()}
+    into a graph (counted once, where captured)."""
+    from pharmaforge_tpu_torch.models import diffusion
+    counts = diffusion.kernel_counts()
+    return {name: counts[name] for name in KERNELS}
+
+
+def replayed(kind: str) -> dict:
+    """The launches that `kind` ("chain", "train", "eval") graphs'
+    replays ran: each graph's captured launches x its replays, per
+    kernel."""
+    from pharmaforge_tpu_torch.utils import trace
+    counts = trace.counters()
+    return {name: counts[f"{kind}.replayed.{name}"] for name in KERNELS}
 
 
 def read_replayed() -> dict:
-    """The launches that chain graphs' replays ran: each graph's captured
-    launches x its replays, per kernel."""
-    from pharmaforge_tpu_torch.models import diffusion
-    return {name: diffusion.replayed_launches[name] for name in KERNELS}
+    """The launches that chain graphs' replays ran, per kernel."""
+    return replayed("chain")
 
 
 def read_train_replayed() -> dict:
-    """The launches that train graphs' replays ran: each graph's captured
-    launches x its replays, per kernel."""
-    from pharmaforge_tpu_torch.models import diffusion
-    return {name: diffusion.train_replayed_launches[name]
-            for name in KERNELS}
+    """The launches that train graphs' replays ran, per kernel."""
+    return replayed("train")
 
 
 def replay_counts() -> tuple:
-    """(graph replays, correction passes those replays ran)."""
-    from pharmaforge_tpu_torch.models import diffusion
-    return (diffusion.graph_replays,
-            diffusion.replayed_launches["corrections"])
+    """(chain graph replays, correction passes those replays ran)."""
+    from pharmaforge_tpu_torch.utils import trace
+    counts = trace.counters()
+    return counts["chain.replays"], counts["chain.replayed.corrections"]
+
+
+def replay_count(kind: str) -> int:
+    """The replays of `kind` ("chain", "train", "eval") graphs."""
+    from pharmaforge_tpu_torch.utils import trace
+    return trace.counters()[f"{kind}.replays"]
+
+
+def capture_count(kind: str) -> int:
+    """The `kind` ("chain", "train", "eval") graph runners built."""
+    from pharmaforge_tpu_torch.utils import trace
+    return trace.counters()[f"{kind}.captures"]
 
 
 def chain_replays(cfg) -> int:
@@ -1341,11 +1345,11 @@ def phase_pp(dev) -> dict:
         for dtype in ("bfloat16", "float32"):
             for name, extra in PP_CASES.items():
                 args, kw = pp_case(dev, dtype=dtype, **extra)
-                before = ppm.launches
+                before = read_launches()["pp_message"]
                 got = ppm.fused_message_agg(*args, **kw)
                 want = ppm.message_agg_reference(*args, **kw)
                 torch.cuda.synchronize()
-                check(ppm.launches == before + 1,
+                check(read_launches()["pp_message"] == before + 1,
                       f"pp {name}: the wrapper did not launch the kernel")
                 if extra.get("masked_row"):
                     check(not got[0][:, 3].any() and not got[1][:, 3].any(),
@@ -1560,10 +1564,10 @@ def phase_ppbwd(dev, cases=None) -> dict:
                                device=dev),
                    torch.randn(b, nd, kw["vector_size"], 3, generator=gen,
                                device=dev))
-            before = ppm.bwd_launches
+            before = read_launches()["pp_message_bwd"]
             got = ppbwd_grads(args, kw, True, cot)
             torch.cuda.synchronize()
-            check(ppm.bwd_launches == before + 1,
+            check(read_launches()["pp_message_bwd"] == before + 1,
                   f"ppbwd {name}: the wrapper did not launch K3")
             want = ppbwd_want(args, kw, dtype, cot)
             bound = None
@@ -2856,7 +2860,6 @@ def trainstep_cases(dev, model, batches: list, k: int) -> tuple:
     case, and the two planted faults. Returns (case lines, fault misses,
     the (eager, captured) pair of K-step setups, its graph kept; after the
     `stale_batches` fault their weights differ)."""
-    from pharmaforge_tpu_torch.models import diffusion
     lines, faults = [], {}
 
     def compare(name, eager, graphed, calls, want_counts=True):
@@ -2873,12 +2876,12 @@ def trainstep_cases(dev, model, batches: list, k: int) -> tuple:
             if want_counts:
                 want = (scaled(PER_STEP, len(bs) + 1) if built
                         else dict.fromkeys(KERNELS, 0),
-                        scaled(PER_STEP, len(bs)), 1)
-                got = (launched, read_train_replayed(),
-                       diffusion.train_graph_replays)
+                        scaled(PER_STEP, len(bs)), 1, int(built))
+                got = (launched, read_train_replayed(), replay_count("train"),
+                       capture_count("train"))
                 check(got == want, f"trainstep {name} call {i}: launched, "
-                                   f"replayed, replays {got}, expected "
-                                   f"{want}")
+                                   f"replayed, replays, captures {got}, "
+                                   f"expected {want}")
             worst, gen_equal = train_miss(eager, e, graphed, g)
             check(worst <= 1 and gen_equal,
                   f"trainstep {name} call {i}: at {worst:.3f} of the "
@@ -2993,9 +2996,7 @@ EVAL_RTOL = 1e-5
 def read_eval_replayed() -> tuple:
     """(validation graph replays, the launches they ran per kernel: each
     graph's captured launches x its replays)."""
-    from pharmaforge_tpu_torch.models import diffusion
-    return diffusion.eval_graph_replays, {
-        name: diffusion.eval_replayed_launches[name] for name in KERNELS}
+    return replay_count("eval"), replayed("eval")
 
 
 def metric_miss(want: dict, got: dict) -> float:
@@ -3243,11 +3244,9 @@ def phase_bench(dev, argv=("--repeats", "2")) -> dict:
     `argv` (it prints its JSON line): every key of BENCH_KEYS, the rates
     positive, the MFU figures at most 1, on this card."""
     from pharmaforge_tpu_torch import bench
-    from pharmaforge_tpu_torch.models import diffusion
-    replays = diffusion.train_graph_replays
+    before = replay_count("train")
     res = bench.main(list(argv) + ["--device", str(dev)])
-    replays = diffusion.train_graph_replays - replays
-    check(replays > 0 or dev.type != "cuda",
+    check(replay_count("train") > before or dev.type != "cuda",
           f"bench: its train steps ran no train graph replay")
     missing = [k for k in BENCH_KEYS if k not in res]
     check(not missing, f"bench: keys missing {missing}")
@@ -3310,11 +3309,11 @@ def dist_setup(data_dir: str, run_dir: str, device: str, backend,
     sampler_model.load_state_dict(model.state_dict())
     sampler = PocketSampler(sampler_model, fixed_prot_slots=atoms,
                             device=dev)
-    replays = diffusion.graph_replays
+    before = replay_count("chain")
     sampler.sample_stacked(pockets, [sizes] * len(pockets),
                            torch.Generator(device=dev).manual_seed(7))
     return (calls, weights, sampler.last_output["pharm_x"], mesh.rank(),
-            diffusion.graph_replays - replays, step_mode(dev), vals)
+            replay_count("chain") - before, step_mode(dev), vals)
 
 
 def weights_close(got: dict, want: dict) -> tuple:
@@ -4431,9 +4430,9 @@ def main() -> int:
         # sampling chain's capture)
         kern["launches"] = train_launches[kern["name"]]
         # the launches below: each graph's captured launches x its
-        # replays (`diffusion.train_replayed_launches` for the fit's train
-        # graphs, `diffusion.eval_replayed_launches` for its validation
-        # graphs, `diffusion.replayed_launches` for the chains)
+        # replays (the registry's `train.replayed.<kernel>` for the fit's
+        # train graphs, `eval.replayed.<kernel>` for its validation
+        # graphs, `chain.replayed.<kernel>` for the chains)
         kern["launches_train_replayed_fit"] = train_graphs[kern["name"]]
         kern["launches_eval_replayed_fit"] = val_graphs[kern["name"]]
         kern["eval_graph_replays_fit"] = val_replays

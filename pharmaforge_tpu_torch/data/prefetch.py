@@ -3,13 +3,22 @@
 Port of `pharmaforge_tpu/data/prefetch.py`: a daemon thread packs batches
 into a small bounded queue while the main thread drives the device, so
 packing overlaps the step (numpy releases the GIL in its copies).
+
+The producer stamps each batch into the ring of `utils/trace.py` (the
+profiler does not see its thread): "loader.pack", the time `next` took on
+the wrapped iterable, with the batch's sequence number; the consumer
+marks when it took the batch and whether the batch was already queued.
+Where the consumer has to wait, the wait is the span "loader.wait".
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Iterable, Iterator
+
+from pharmaforge_tpu_torch.utils import trace
 
 
 class _End:
@@ -29,8 +38,16 @@ def prefetch(iterable: Iterable, depth: int = 2) -> Iterator:
 
     def producer():
         try:
-            for item in iterable:
-                q.put(item)
+            items = iter(iterable)
+            seq = 0
+            while True:
+                t0 = time.perf_counter_ns()
+                try:
+                    item = next(items)
+                except StopIteration:
+                    break
+                q.put((item, trace.batch_packed(seq, t0)))
+                seq += 1
         except BaseException as e:  # noqa: BLE001 - relayed to the consumer
             q.put(_Raise(e))
             return
@@ -40,9 +57,15 @@ def prefetch(iterable: Iterable, depth: int = 2) -> Iterator:
                               name="batch-prefetch")
     thread.start()
     while True:
-        item = q.get()
-        if item is _End:
+        try:
+            got, queued = q.get_nowait(), True
+        except queue.Empty:
+            with trace.span("loader.wait"):
+                got, queued = q.get(), False
+        if got is _End:
             break
-        if isinstance(item, _Raise):
-            raise item.exc
+        if isinstance(got, _Raise):
+            raise got.exc
+        item, record = got
+        record.taken(queued)
         yield item

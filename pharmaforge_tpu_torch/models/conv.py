@@ -56,12 +56,7 @@ from pharmaforge_tpu_torch.ops.pp_message import (
     COMPUTE_DTYPES,
     fused_message_agg,
 )
-
-# pocket-copy correction passes run (`_fused_pp_corrected` calls), as the
-# kernels' wrappers count their launches: a pass inside a CUDA graph
-# capture counts once, where it is captured, not at each replay
-# (`diffusion.replayed_launches` counts the replays')
-corrections = 0
+from pharmaforge_tpu_torch.utils import trace
 
 # canonical edge types (src_ntype, name, dst_ntype), reference
 # dynamics_gvp.py:46-54; aggregation adds them in this order
@@ -400,8 +395,9 @@ class GVPMultiEdgeConv(nn.Module):
         sums. Two K2 calls at K=1, where the masked K-sum is the edge's own
         message: the clean edges [G, Nd*K, 1], and the dirty out-edges
         [B, m*K_out, 1] on the dirty atoms' rows [B, m, ...]."""
-        global corrections
-        corrections += 1
+        # counted as the kernels' wrappers count their launches: a pass
+        # inside a CUDA graph capture counts once, where it is captured
+        trace.count("conv.corrections")
         g, nd, k = ed.mask.shape
         e, r, nv = nd * k, self.rbf_dim, self.vector_size
         s_e, v_e = self._k2(chain, corr["clean_h"], corr["clean_v"],

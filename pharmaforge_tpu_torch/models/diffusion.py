@@ -33,7 +33,6 @@ from torch.nn import functional as F
 
 from pharmaforge_tpu_torch import resolve_device
 from pharmaforge_tpu_torch.data.batch import PharmComplexBatch
-from pharmaforge_tpu_torch.models import conv
 from pharmaforge_tpu_torch.models.dynamics import (
     PharmRecDynamics,
     precompute_sampling_tables,
@@ -45,10 +44,10 @@ from pharmaforge_tpu_torch.models.edges import (
 )
 from pharmaforge_tpu_torch.models.gvp import batch_rows, reset_parameters_
 from pharmaforge_tpu_torch.models.schedules import make_gamma_table
-from pharmaforge_tpu_torch.ops import knn_select, pp_message
 from pharmaforge_tpu_torch.ops.geometry import masked_com
 from pharmaforge_tpu_torch.ops.pp_message import COMPUTE_DTYPES
 from pharmaforge_tpu_torch.parallel.mesh import all_reduce_sum
+from pharmaforge_tpu_torch.utils import trace
 
 
 def sigma_of_gamma(gamma: torch.Tensor) -> torch.Tensor:
@@ -429,11 +428,13 @@ class PharmacophoreDiffusion(nn.Module):
                               visualize_trajectory: bool = False,
                               noise: Optional[Dict[str, Any]] = None,
                               pocket_group_size: int = 1,
-                              pp_k_out: int = 0) -> Dict[str, torch.Tensor]:
+                              pp_k_out: int = 0, to_host: bool = False
+                              ) -> Dict[str, Any]:
         """The full reverse DDPM chain (reference pharmacodiff.py:433-514).
 
-        Returns tensors on the model's device: final `pharm_x`/`pharm_h`
-        in the original pocket frame, `pharm_mask`, and with
+        Returns tensors on the model's device (with `to_host`, numpy
+        arrays copied to the host): final `pharm_x`/`pharm_h` in the
+        original pocket frame, `pharm_mask`, and with
         `visualize_trajectory` the frames `traj_x` [T+1,B,F,3] and
         `traj_h` [T+1,B,F,nf], initial frame first.
 
@@ -471,20 +472,36 @@ class PharmacophoreDiffusion(nn.Module):
         a capture that fails raises. The graphs of the last signature stay
         on the model and serve the next chain of the same shapes, flags
         and parameter storage, as the JAX sampler reuses its jit. On the
-        CPU the same step runs eagerly, U steps at a time."""
+        CPU the same step runs eagerly, U steps at a time.
+
+        Spans (`utils/trace.py`): "chain.setup", "chain.graphs" (with
+        "chain.capture" inside where new graphs are captured), then
+        "chain.run", which holds "chain.replay" (the replays' enqueue;
+        "chain.eager" for the CPU's eager steps) and "chain.fetch" (the
+        result and, with `to_host`, its copy to the host, which waits for
+        the device)."""
         chain = self.chain_setup(batch, generator, init_pharm_com,
                                  visualize_trajectory, noise,
                                  pocket_group_size, pp_k_out)
         unroll = max(1, self.config.sample_scan_unroll)
+        graphs = None
         if chain.device.type == "cuda":
             graphs = self._graphs_for(chain, unroll)
-            graphs.run()
             chain = graphs.chain
-        else:
-            for start in range(0, chain.n_steps, unroll):
-                for _ in range(min(unroll, chain.n_steps - start)):
-                    self.chain_step(chain)
-        return self.chain_result(chain)
+        with trace.span("chain.run"):
+            if graphs is not None:
+                with trace.span("chain.replay"):
+                    graphs.run()
+            else:
+                with trace.span("chain.eager"):
+                    for start in range(0, chain.n_steps, unroll):
+                        for _ in range(min(unroll, chain.n_steps - start)):
+                            self.chain_step(chain)
+            with trace.span("chain.fetch"):
+                out = self.chain_result(chain)
+                if to_host:
+                    out = {k: v.cpu().numpy() for k, v in out.items()}
+        return out
 
     @torch.no_grad()
     def chain_setup(self, batch: PharmComplexBatch,
@@ -496,7 +513,15 @@ class PharmacophoreDiffusion(nn.Module):
         """Everything a chain does before its first step, once per chain
         (`sample_given_receptor`'s arguments). Holds the one host sync of
         a chain (the out-degree check of `build_pp_out_edges`), outside
-        every graph."""
+        every graph. Span "chain.setup" (`utils/trace.py`)."""
+        with trace.span("chain.setup"):
+            return self._chain_setup(batch, generator, init_pharm_com,
+                                     visualize_trajectory, noise,
+                                     pocket_group_size, pp_k_out)
+
+    def _chain_setup(self, batch, generator, init_pharm_com,
+                     visualize_trajectory, noise, pocket_group_size,
+                     pp_k_out) -> "ReverseChain":
         cfg = self.config
         self.eval()
         dev = self.device
@@ -681,19 +706,20 @@ class PharmacophoreDiffusion(nn.Module):
         """The captured graphs that run `chain`: the last ones, with
         `chain` copied into their tensors, where its signature matches
         theirs; else new ones, captured on a copy of `chain` (the old ones
-        are freed first)."""
-        key = (_spec(chain.inputs), _spec(chain.state),
-               chain.pocket_group_size, chain.n_steps, unroll,
-               tuple(t.data_ptr() for t in
-                     (*self.parameters(), *self.buffers())))
-        graphs = getattr(self, "_chain_graphs", None)
-        if graphs is not None and graphs.key == key:
-            graphs.load(chain)
+        are freed first). Span "chain.graphs" (`utils/trace.py`)."""
+        with trace.span("chain.graphs"):
+            key = (_spec(chain.inputs), _spec(chain.state),
+                   chain.pocket_group_size, chain.n_steps, unroll,
+                   tuple(t.data_ptr() for t in
+                         (*self.parameters(), *self.buffers())))
+            graphs = getattr(self, "_chain_graphs", None)
+            if graphs is not None and graphs.key == key:
+                graphs.load(chain)
+                return graphs
+            self._chain_graphs = None
+            graphs = ChainGraphs(self.chain_step, chain, unroll, key)
+            self._chain_graphs = graphs
             return graphs
-        self._chain_graphs = None
-        graphs = ChainGraphs(self.chain_step, chain, unroll, key)
-        self._chain_graphs = graphs
-        return graphs
 
 
 @dataclasses.dataclass
@@ -753,20 +779,13 @@ def _clone(tree):
     return tree
 
 
-# replays of captured chain graphs (`ChainGraphs.run`), as the kernels'
-# wrappers count their launches
-graph_replays = 0
-# the kernel launches and correction passes that those replays ran: each
-# replay adds what its graph's capture recorded in the wrappers' counts
-# (which count a launch where it is captured, not where it is replayed)
-replayed_launches = {"knn_select": 0, "pp_message": 0, "pp_message_bwd": 0,
-                     "corrections": 0}
-# the same for captured train steps (`training/train_state.py::TrainGraphs`)
-train_graph_replays = 0
-train_replayed_launches = dict.fromkeys(replayed_launches, 0)
-# and for captured validation batches (`training/train_state.py::EvalGraphs`)
-eval_graph_replays = 0
-eval_replayed_launches = dict.fromkeys(replayed_launches, 0)
+# the registry's counters (`utils/trace.py`) that a graph's capture
+# records, by kernel: each replay of the graph counts them again as
+# "<kind>.replayed.<kernel>"
+KERNEL_COUNTERS = {"knn_select": "knn_select.launches",
+                   "pp_message": "pp_message.launches",
+                   "pp_message_bwd": "pp_message.bwd_launches",
+                   "corrections": "conv.corrections"}
 
 
 @contextlib.contextmanager
@@ -785,31 +804,19 @@ def collector_paused():
             gc.enable()
 
 
-def launch_counts() -> Dict[str, int]:
-    """The wrappers' launch counts and the correction passes, now."""
-    return {"knn_select": knn_select.launches,
-            "pp_message": pp_message.launches,
-            "pp_message_bwd": pp_message.bwd_launches,
-            "corrections": conv.corrections}
+def kernel_counts() -> Dict[str, int]:
+    """The kernel counters now, by kernel (`KERNEL_COUNTERS`)."""
+    now = trace.counters()
+    return {k: now[name] for k, name in KERNEL_COUNTERS.items()}
 
 
-def add_replays(counts: Dict[str, int], replays: int,
-                kind: str = "chain") -> None:
-    """Count `replays` replays of a graph whose capture recorded `counts`:
-    a chain graph, a train graph (`kind` "train") or a validation graph
-    ("eval")."""
-    global graph_replays, train_graph_replays, eval_graph_replays
-    if kind == "train":
-        train_graph_replays += replays
-        launched = train_replayed_launches
-    elif kind == "eval":
-        eval_graph_replays += replays
-        launched = eval_replayed_launches
-    else:
-        graph_replays += replays
-        launched = replayed_launches
-    for k, n in counts.items():
-        launched[k] += n * replays
+def count_replays(kind: str, captured: Dict[str, int], replays: int) -> None:
+    """Count `replays` replays of a `kind` graph ("chain", "train" or
+    "eval") whose capture counted `captured` (kernel -> launches):
+    "<kind>.replays" and "<kind>.replayed.<kernel>"."""
+    trace.count(f"{kind}.replays", replays)
+    for k, n in captured.items():
+        trace.count(f"{kind}.replayed.{k}", n * replays)
 
 
 class ChainGraphs:
@@ -825,9 +832,15 @@ class ChainGraphs:
     leaves no trace. `capture_ms` is the host time of that step and the
     captures, `pool_bytes` the device memory the captures reserved, and
     `graphs` holds (graph, its replays a chain, the launches its capture
-    recorded in the wrappers' counts)."""
+    counted, by kernel). Building one counts "chain.captures" once its
+    captures returned, inside the span "chain.capture" (`utils/trace.py`)."""
 
     def __init__(self, step, chain: ReverseChain, unroll: int, key):
+        with trace.span("chain.capture"):
+            self._capture(step, chain, unroll, key)
+            trace.count("chain.captures")
+
+    def _capture(self, step, chain: ReverseChain, unroll: int, key) -> None:
         dev = chain.device
         self.key = key
         self.chain = dataclasses.replace(chain,
@@ -853,12 +866,12 @@ class ChainGraphs:
                     if not steps or not replays:
                         continue
                     graph = torch.cuda.CUDAGraph()
-                    before = launch_counts()
+                    before = kernel_counts()
                     with torch.cuda.graph(graph, pool=pool):
                         for _ in range(steps):
                             step(self.chain)
                     pool = graph.pool()
-                    after = launch_counts()
+                    after = kernel_counts()
                     self.graphs.append(
                         (graph, replays, {k: after[k] - before[k]
                                           for k in after}))
@@ -880,4 +893,4 @@ class ChainGraphs:
         for graph, replays, counts in self.graphs:
             for _ in range(replays):
                 graph.replay()
-            add_replays(counts, replays)
+            count_replays("chain", counts, replays)

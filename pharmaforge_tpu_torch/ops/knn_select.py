@@ -25,10 +25,11 @@ describes the design).
 Both entries launch the kernel for CUDA tensors (or raise) and run their
 plain version for CPU tensors. The plain versions are what the CPU tests
 run and what the kernel is held against on the card; the main path on the
-card never calls them. `launches` counts kernel launches of either entry.
-Inside a CUDA graph capture it counts the launch where it is captured,
-not where it is replayed: a captured sampling chain adds its replays'
-launches to `models/diffusion.py::replayed_launches`.
+card never calls them. The counter `knn_select.launches`
+(`utils/trace.py`) counts kernel launches of either entry. Inside a CUDA
+graph capture it counts the launch where it is captured, not where it is
+replayed: a captured graph's replays count theirs under
+`<kind>.replayed.knn_select`.
 """
 
 from __future__ import annotations
@@ -40,12 +41,12 @@ from typing import Tuple
 import torch
 
 from pharmaforge_tpu_torch.ops.geometry import RBF_DIM, pair_geometry
+from pharmaforge_tpu_torch.utils import trace
 
 _BIG = 1e30
 # shared memory a block may use on Hopper (bytes)
 _MAX_SMEM = 232448
 
-launches = 0
 
 Tensors = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 PfEdges = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
@@ -165,8 +166,7 @@ def _launch(entry, dev, inputs, b: int, f: int, p: int, k: int,
     if err != 0:
         raise RuntimeError(f"knn_select kernel launch failed: CUDA error "
                            f"{err}")
-    global launches
-    launches += 1
+    trace.count("knn_select.launches")
 
 
 def _on_card(name: str, dev: torch.device) -> bool:

@@ -32,11 +32,12 @@ launches K3 (or raises: there is no fallback). Its inputs are the node
 tables and the split weights (`split_weights`), views of the GVP
 parameters, so autograd routes each weight gradient back to its parameter.
 The edge geometry gets no gradient, as in the JAX backward kernel: an
-`x_dir` or `d_rbf` that requires grad raises. `launches` counts K2
-launches and `bwd_launches` K3 launches. Inside a CUDA graph capture they
-count a launch where it is captured, not where it is replayed: a
-captured sampling chain adds its replays' launches to
-`models/diffusion.py::replayed_launches`.
+`x_dir` or `d_rbf` that requires grad raises. The counters
+`pp_message.launches` and `pp_message.bwd_launches` (`utils/trace.py`)
+count K2 and K3 launches. Inside a CUDA graph capture they count a
+launch where it is captured, not where it is replayed: a captured
+graph's replays count theirs under `<kind>.replayed.pp_message` and
+`<kind>.replayed.pp_message_bwd`.
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ import functools
 from typing import Sequence, Tuple
 
 import torch
+
+from pharmaforge_tpu_torch.utils import trace
 
 # shared memory a block may use on Hopper (bytes)
 _MAX_SMEM = 232448
@@ -60,8 +63,6 @@ COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # held against, since fp32 autograd rounds those sums as much as K3 does
 REFERENCE_DTYPES = {**COMPUTE_DTYPES, "float64": torch.float64}
 
-launches = 0
-bwd_launches = 0
 
 Tensors = Tuple[torch.Tensor, torch.Tensor]
 
@@ -308,8 +309,7 @@ def _launch_fwd(d: _Dims, tab_s, tab_v, idx, mask, rterm, dirterm,
     if err != 0:
         raise RuntimeError(f"pp_message kernel launch failed: CUDA error "
                            f"{err}")
-    global launches
-    launches += 1
+    trace.count("pp_message.launches")
     return s_sum, v_sum
 
 
@@ -368,8 +368,7 @@ def _launch_bwd(d: _Dims, saved: tuple, ds: torch.Tensor, dv: torch.Tensor
     if err != 0:
         raise RuntimeError(f"pp_message_bwd kernel launch failed: CUDA "
                            f"error {err}")
-    global bwd_launches
-    bwd_launches += 1
+    trace.count("pp_message.bwd_launches")
     return d_tab_s, d_tab_v, d_w
 
 

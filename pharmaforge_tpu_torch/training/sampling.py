@@ -10,6 +10,12 @@ receptor sites for the validity metric. Random draws come from an explicit
 `torch.Generator`. Grouped batches probe the pocket-copy correction's
 `pp_k_out` once per device call (`probe_pp_k_out`).
 
+Spans (`utils/trace.py`): each device call of `sample_stacked`, and each
+chunk of `sample_pocket`, is one root span "sampler.call" holding
+"sampler.tile" (tiling, stacking, centres of mass), "sampler.probe",
+the chain's spans (`PharmacophoreDiffusion.sample_given_receptor`) and
+"sampler.split" (`SampledPharmacophore.from_batch`).
+
 Inside a process group of N ranks (`parallel/mesh.py`) a device batch is
 split into N contiguous row blocks where each block is whole pocket groups
 or an equal part of one (JAX sampling.py:178-192, 271-281: the copies of
@@ -50,6 +56,7 @@ from pharmaforge_tpu_torch.models.edges import (
     max_pp_out_degree,
 )
 from pharmaforge_tpu_torch.parallel.mesh import all_gather_object, rank, world
+from pharmaforge_tpu_torch.utils import trace
 
 
 def probe_pp_k_out(model: PharmacophoreDiffusion, prot_x_g,
@@ -112,8 +119,9 @@ class PocketSampler:
         sampling.py:108-113)."""
         if group <= 1 or world() > 1:
             return 0
-        return probe_pp_k_out(self.model, batch.prot_x[::group],
-                              batch.prot_mask[::group])
+        with trace.span("sampler.probe"):
+            return probe_pp_k_out(self.model, batch.prot_x[::group],
+                                  batch.prot_mask[::group])
 
     @staticmethod
     def _rank_group(b: int, group: int) -> int:
@@ -138,8 +146,7 @@ class PocketSampler:
             out = self.model.sample_given_receptor(
                 batch, generator=generator, init_pharm_com=com,
                 visualize_trajectory=visualize, pocket_group_size=group,
-                pp_k_out=self._pp_k_out(batch, group))
-            out = {k: v.cpu().numpy() for k, v in out.items()}
+                pp_k_out=self._pp_k_out(batch, group), to_host=True)
         else:
             # the global batch's draws, this rank's rows of everything
             per = b // world()
@@ -154,9 +161,8 @@ class PocketSampler:
             out = self.model.sample_given_receptor(
                 mine, noise=noise, init_pharm_com=np.asarray(com)[rows],
                 visualize_trajectory=visualize,
-                pocket_group_size=local_group, pp_k_out=0)
-            parts = all_gather_object({k: v.cpu().numpy()
-                                       for k, v in out.items()})
+                pocket_group_size=local_group, pp_k_out=0, to_host=True)
+            parts = all_gather_object(out)
             out = {k: np.concatenate([p[k] for p in parts],
                                      axis=1 if k.startswith("traj") else 0)
                    for k in parts[0]}
@@ -182,29 +188,35 @@ class PocketSampler:
             n_real = len(chunk)
             pad_sizes = chunk + [3] * (max_batch_size - n_real) \
                 if n_chunks > 1 else chunk
-            batch = tile_pocket(
-                pocket["prot_x"], pocket["prot_h"], pad_sizes,
-                n_pharm_feats=self.model.config.pharm_nf,
-                max_pharm=max(DEFAULT_MAX_PHARM, max(pad_sizes)),
-                max_prot=self.fixed_prot_slots,
-                prot_bucket_multiple=self.prot_bucket_multiple)
-            if init_pharm_com is not None:
-                com = np.broadcast_to(
-                    np.asarray(init_pharm_com, np.float32).reshape(1, 3),
-                    (batch.batch_size, 3))
-            else:
-                pm = batch.prot_mask[..., None]
-                com = ((batch.prot_x * pm).sum(1)
-                       / np.maximum(pm.sum(1), 1)).astype(np.float32)
-            # one pocket per chunk: the whole chunk is one pocket group
-            out = self._run(batch, generator, com, batch.batch_size,
-                            visualize_trajectory)
-            out = {k: (v[:, :n_real] if k.startswith("traj") else v[:n_real])
-                   for k, v in out.items()}
-            results.extend(SampledPharmacophore.from_batch(
-                out, self.pharm_type_map,
-                with_trajectory=visualize_trajectory,
-                prot_ph_pos=prot_ph_pos, prot_ph_types=prot_ph_types))
+            with trace.span("sampler.call"):
+                with trace.span("sampler.tile"):
+                    batch = tile_pocket(
+                        pocket["prot_x"], pocket["prot_h"], pad_sizes,
+                        n_pharm_feats=self.model.config.pharm_nf,
+                        max_pharm=max(DEFAULT_MAX_PHARM, max(pad_sizes)),
+                        max_prot=self.fixed_prot_slots,
+                        prot_bucket_multiple=self.prot_bucket_multiple)
+                    if init_pharm_com is not None:
+                        com = np.broadcast_to(
+                            np.asarray(init_pharm_com,
+                                       np.float32).reshape(1, 3),
+                            (batch.batch_size, 3))
+                    else:
+                        pm = batch.prot_mask[..., None]
+                        com = ((batch.prot_x * pm).sum(1)
+                               / np.maximum(pm.sum(1), 1)).astype(
+                                   np.float32)
+                # one pocket per chunk: the whole chunk is one pocket group
+                out = self._run(batch, generator, com, batch.batch_size,
+                                visualize_trajectory)
+                with trace.span("sampler.split"):
+                    out = {k: (v[:, :n_real] if k.startswith("traj")
+                               else v[:n_real]) for k, v in out.items()}
+                    results.extend(SampledPharmacophore.from_batch(
+                        out, self.pharm_type_map,
+                        with_trajectory=visualize_trajectory,
+                        prot_ph_pos=prot_ph_pos,
+                        prot_ph_types=prot_ph_types))
         return results
 
     def sample(self, pockets: List[dict], n_pharms: List[Sequence[int]],
@@ -241,26 +253,34 @@ class PocketSampler:
         """All pockets x samples in one device batch, pocket-major (pocket
         i holds rows [i*c, (i+1)*c)), with `pocket_group_size` = c, the
         samples per pocket."""
+        with trace.span("sampler.call"):
+            return self._sample_stacked(pockets, n_pharms, generator,
+                                        init_pharm_com)
+
+    def _sample_stacked(self, pockets, n_pharms, generator, init_pharm_com):
         c = len(n_pharms[0])
-        f_max = max(DEFAULT_MAX_PHARM, max(max(s) for s in n_pharms))
-        batch = concat_batches([
-            tile_pocket(p["prot_x"], p["prot_h"], sizes,
-                        n_pharm_feats=self.model.config.pharm_nf,
-                        max_pharm=f_max, max_prot=self.fixed_prot_slots,
-                        prot_bucket_multiple=self.prot_bucket_multiple)
-            for p, sizes in zip(pockets, n_pharms)])
-        if init_pharm_com is not None:
-            coms = np.asarray(init_pharm_com, np.float32).reshape(-1, 3)
-        else:
-            pm = batch.prot_mask[::c][..., None]
-            coms = ((batch.prot_x[::c] * pm).sum(1)
-                    / np.maximum(pm.sum(1), 1)).astype(np.float32)
-        out = self._run(batch, generator, np.repeat(coms, c, axis=0), c)
+        with trace.span("sampler.tile"):
+            f_max = max(DEFAULT_MAX_PHARM, max(max(s) for s in n_pharms))
+            batch = concat_batches([
+                tile_pocket(p["prot_x"], p["prot_h"], sizes,
+                            n_pharm_feats=self.model.config.pharm_nf,
+                            max_pharm=f_max, max_prot=self.fixed_prot_slots,
+                            prot_bucket_multiple=self.prot_bucket_multiple)
+                for p, sizes in zip(pockets, n_pharms)])
+            if init_pharm_com is not None:
+                coms = np.asarray(init_pharm_com, np.float32).reshape(-1, 3)
+            else:
+                pm = batch.prot_mask[::c][..., None]
+                coms = ((batch.prot_x[::c] * pm).sum(1)
+                        / np.maximum(pm.sum(1), 1)).astype(np.float32)
+            coms = np.repeat(coms, c, axis=0)
+        out = self._run(batch, generator, coms, c)
         per_pocket = []
-        for i, pocket in enumerate(pockets):
-            prot_ph_pos, prot_ph_types = _site_types(pocket)
-            sub = {k: v[i * c:(i + 1) * c] for k, v in out.items()}
-            per_pocket.append(SampledPharmacophore.from_batch(
-                sub, self.pharm_type_map, with_trajectory=False,
-                prot_ph_pos=prot_ph_pos, prot_ph_types=prot_ph_types))
+        with trace.span("sampler.split"):
+            for i, pocket in enumerate(pockets):
+                prot_ph_pos, prot_ph_types = _site_types(pocket)
+                sub = {k: v[i * c:(i + 1) * c] for k, v in out.items()}
+                per_pocket.append(SampledPharmacophore.from_batch(
+                    sub, self.pharm_type_map, with_trajectory=False,
+                    prot_ph_pos=prot_ph_pos, prot_ph_types=prot_ph_types))
         return per_pocket

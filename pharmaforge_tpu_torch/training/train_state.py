@@ -18,6 +18,16 @@ a gloo process group (whose all-reduce a graph cannot hold), the same
 work runs eagerly; `captured` decides, and `step_mode` says which in
 words.
 
+Spans (`utils/trace.py`), inside the trainer's "trainer.call": a call's
+"train.graphs" (the signature lookup, with "train.capture" inside where a
+graph is captured), "train.load" (the batches' copy into the graph's
+inputs), "train.replay" (the replay's enqueue; "train.eager" for the
+eager steps) and "train.fetch" (the metrics' copy to the host, which
+waits for the device); a validation batch's "eval.capture" where its
+graph is captured. Each runner counts its captures and replays in the
+registry: "train.captures", "train.replays", "train.replayed.<kernel>"
+and the same under "eval.".
+
 Under data parallelism (`rows`, see `PharmacophoreDiffusion.loss`) each
 rank differentiates its share of the global loss and the gradients are
 summed over the ranks before the update, so every rank applies the
@@ -43,6 +53,7 @@ from pharmaforge_tpu_torch.models import diffusion
 from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
 from pharmaforge_tpu_torch.parallel.mesh import all_reduce_grads
 from pharmaforge_tpu_torch.training.optim import Adam
+from pharmaforge_tpu_torch.utils import trace
 
 _FIELDS = [f.name for f in dataclasses.fields(PharmComplexBatch)]
 
@@ -112,12 +123,16 @@ def multi_train_step(model: PharmacophoreDiffusion, optimizer: Adam,
             raise ValueError("injected draws: the captured steps draw from "
                              "the generator (eager_train_steps takes them)")
         graphs = _graphs_for(model, optimizer, batches, generator, rows)
-        graphs.load(batches)
-        names, out = graphs.names, graphs.run()
+        with trace.span("train.load"):
+            graphs.load(batches)
+        with trace.span("train.replay"):
+            names, out = graphs.names, graphs.run()
     else:
-        names, out = eager_train_steps(model, optimizer, batches, generator,
-                                       rows, noise)
-    vals = out.to("cpu", copy=True).numpy()
+        with trace.span("train.eager"):
+            names, out = eager_train_steps(model, optimizer, batches,
+                                           generator, rows, noise)
+    with trace.span("train.fetch"):
+        vals = out.to("cpu", copy=True).numpy()
     return {name: vals[:, i] for i, name in enumerate(names)}
 
 
@@ -225,18 +240,17 @@ def _capture(dev, generator: torch.Generator, pool, body) -> tuple:
     """`body()` captured into a new CUDA graph in memory pool `pool`, with
     `generator` registered and Python's cyclic collector paused
     (`diffusion.collector_paused`). Returns (the graph, the launches the
-    capture recorded in the wrappers' counts, the device memory it
-    reserved)."""
+    capture counted, by kernel, the device memory it reserved)."""
     with diffusion.collector_paused():
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(generator)
-        before = diffusion.launch_counts()
+        before = diffusion.kernel_counts()
         with torch.cuda.graph(graph, pool=pool):
             body()
-        after = diffusion.launch_counts()
+        after = diffusion.kernel_counts()
         torch.cuda.synchronize(dev)
         return (graph, {k: after[k] - before[k] for k in after},
                 torch.cuda.memory_reserved(dev) - reserved)
@@ -249,18 +263,19 @@ def _graphs_for(model: PharmacophoreDiffusion, optimizer: Adam,
     accumulation phase, `rows`, the model and the generator), or a new one.
     When the weights' or the optimizer's tensors have moved since the kept
     graphs were captured, those are freed first."""
-    addrs = tuple(t.data_ptr() for t in _state_tensors(model, optimizer))
-    kept = optimizer.train_graphs
-    if any(g.addrs != addrs for g in kept.values()):
-        kept.clear()
-        optimizer.graph_pool = None
-    key = (_shapes(batches), optimizer.mini_step, rows, id(model),
-           id(generator))
-    graphs = kept.get(key)
-    if graphs is None:
-        graphs = TrainGraphs(model, optimizer, generator, batches, rows)
-        kept[key] = graphs
-    return graphs
+    with trace.span("train.graphs"):
+        addrs = tuple(t.data_ptr() for t in _state_tensors(model, optimizer))
+        kept = optimizer.train_graphs
+        if any(g.addrs != addrs for g in kept.values()):
+            kept.clear()
+            optimizer.graph_pool = None
+        key = (_shapes(batches), optimizer.mini_step, rows, id(model),
+               id(generator))
+        graphs = kept.get(key)
+        if graphs is None:
+            graphs = TrainGraphs(model, optimizer, generator, batches, rows)
+            kept[key] = graphs
+        return graphs
 
 
 class TrainGraphs:
@@ -275,8 +290,8 @@ class TrainGraphs:
     and diffusion noise from `generator`, registered with the graph, so a
     replay advances it as K eager steps do. Python state the steps change
     runs once, at capture: `run` replays its effect (the accumulation
-    phase `mini_step`; the wrappers' launch counts, re-based as captured
-    launches x replays in `diffusion.train_replayed_launches`).
+    phase `mini_step`; the kernel counters, re-counted as captured
+    launches x replays under "train.replayed.<kernel>").
 
     Before the capture one step runs eagerly on a side stream, so the
     first-use work (kernel builds, launch attributes, K3's scratch query,
@@ -286,11 +301,17 @@ class TrainGraphs:
     shares one memory pool. `addrs` are the storage addresses of the
     tensors the graph updates in place, `capture_ms` the host time of the
     warm-up and the capture, `pool_bytes` the device memory the capture
-    reserved."""
+    reserved. Building one counts "train.captures" once its capture
+    returned, inside the span "train.capture"."""
 
     def __init__(self, model: PharmacophoreDiffusion, optimizer: Adam,
                  generator: torch.Generator, batches: PharmComplexBatch,
                  rows: Optional[Tuple[int, int]]):
+        with trace.span("train.capture"):
+            self._capture(model, optimizer, generator, batches, rows)
+            trace.count("train.captures")
+
+    def _capture(self, model, optimizer, generator, batches, rows) -> None:
         dev = model.device
         self.model, self.optimizer, self.generator = model, optimizer, \
             generator
@@ -350,7 +371,7 @@ class TrainGraphs:
                                f"at phase {opt.mini_step}")
         self.graph.replay()
         opt.mini_step = (self.phase + self.k) % opt.accumulate
-        diffusion.add_replays(self.counts, 1, kind="train")
+        diffusion.count_replays("train", self.counts, 1)
         return self.out
 
 
@@ -394,9 +415,9 @@ class EvalGraphs:
     weights, and draws the diffusion noise from `generator`, registered
     with the graph, so a replay advances it as one eager `eager_eval`
     does. Python state that the forward changes runs once, at capture:
-    `run` replays its effect (eval mode, which `loss` sets; the wrappers'
-    launch counts, re-based as captured launches x replays in
-    `diffusion.eval_replayed_launches`).
+    `run` replays its effect (eval mode, which `loss` sets; the kernel
+    counters, re-counted as captured launches x replays under
+    "eval.replayed.<kernel>").
 
     Before the capture the forward runs once eagerly on a side stream, so
     first-use work (kernel builds, launch attributes, cuBLAS workspaces)
@@ -405,11 +426,17 @@ class EvalGraphs:
     (`pool`), apart from the train graphs'. `addrs` are the storage
     addresses of the weights and buffers the graph reads, `capture_ms`
     the host time of the warm-up and the capture, `pool_bytes` the device
-    memory the capture reserved."""
+    memory the capture reserved. Building one counts "eval.captures" once
+    its capture returned, inside the span "eval.capture"."""
 
     def __init__(self, model: PharmacophoreDiffusion,
                  generator: torch.Generator, batch: PharmComplexBatch,
                  rows: Optional[Tuple[int, int]], pool=None):
+        with trace.span("eval.capture"):
+            self._capture(model, generator, batch, rows, pool)
+            trace.count("eval.captures")
+
+    def _capture(self, model, generator, batch, rows, pool) -> None:
         dev = model.device
         self.model, self.generator, self.rows = model, generator, rows
         self.inputs = {name: torch.from_numpy(np.array(getattr(
@@ -448,5 +475,5 @@ class EvalGraphs:
         which this graph's next replay overwrites."""
         self.graph.replay()
         self.model.train(False)
-        diffusion.add_replays(self.counts, 1, kind="eval")
+        diffusion.count_replays("eval", self.counts, 1)
         return self.out

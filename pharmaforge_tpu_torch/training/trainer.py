@@ -40,6 +40,13 @@ copy. All randomness
 (diffusion noise, dropout, sampling) comes from one `torch.Generator` on
 the device, seeded with `seed`, drawn alike on every rank, and kept in
 the checkpoint.
+
+Spans (`utils/trace.py`): each `train_call` is one root span
+"trainer.call" holding "trainer.stack" (the batches cut to this rank's
+rows and stacked) and the train step's spans
+(`train_state.multi_train_step`); each `validate` one root span
+"trainer.validate"; the loader's prefetcher adds "loader.wait" where the
+loop waits for a batch (`data/prefetch.py`).
 """
 
 from __future__ import annotations
@@ -77,6 +84,7 @@ from pharmaforge_tpu_torch.training.train_state import (
     multi_train_step,
     step_mode,
 )
+from pharmaforge_tpu_torch.utils import trace
 
 
 class Trainer:
@@ -129,9 +137,6 @@ class Trainer:
         self.epoch = 0
         self.last_sample_marker = 0.0
         self.last_val_marker = 0.0
-        # host wall seconds of every optimizer step (train steps/s): each
-        # call's wall over its steps
-        self.step_seconds: List[float] = []
         self.progress_refresh = 1 if debug else int(
             tr.get("progress_refresh", 20))
         self._progress_width = 0
@@ -170,12 +175,14 @@ class Trainer:
         the current learning rate, on padded global batches of one shape
         (this rank's rows of each in a process group); each step's
         metrics."""
-        local = [local_batch(b) for b in batches]
-        out = multi_train_step(self.model, self.optimizer,
-                               stack_batches([b for b, _ in local]),
-                               self.generator, self.lr, local[0][1])
-        return [{k: float(v[j]) for k, v in out.items()}
-                for j in range(len(batches))]
+        with trace.span("trainer.call"):
+            with trace.span("trainer.stack"):
+                local = [local_batch(b) for b in batches]
+                stacked = stack_batches([b for b, _ in local])
+            out = multi_train_step(self.model, self.optimizer, stacked,
+                                   self.generator, self.lr, local[0][1])
+            return [{k: float(v[j]) for k, v in out.items()}
+                    for j in range(len(batches))]
 
     def fit(self, model: PharmacophoreDiffusion,
             datamodule: CrossdockedDataModule,
@@ -223,10 +230,7 @@ class Trainer:
             def run_call(entries):
                 """One call over [(batch_idx, batch)] of one shape, then
                 each step's bookkeeping on the state after the call."""
-                t0 = time.perf_counter()
                 rows = self.train_call([b for _, b in entries])
-                per_step = (time.perf_counter() - t0) / len(entries)
-                self.step_seconds.extend([per_step] * len(entries))
                 for (batch_idx, _), aux in zip(entries, rows):
                     self._after_step(batch_idx, n_batches, aux,
                                      epoch_metrics, datamodule)
@@ -317,6 +321,10 @@ class Trainer:
         metrics go into row i of a device buffer, which comes to the host
         in one copy after the last batch; the weighted sums are then formed
         in batch order in Python floats."""
+        with trace.span("trainer.validate"):
+            return self._validate(datamodule)
+
+    def _validate(self, datamodule) -> Dict[str, float]:
         loader = datamodule.val_dataloader(seed=self.seed)
         n_batches = self.val_batch_count(loader)
         names, stack, sizes = [], None, []

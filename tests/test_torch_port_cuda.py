@@ -23,6 +23,7 @@ import torch
 
 import chip_smoke
 from pharmaforge_tpu_torch.ops import knn_select as ks
+from pharmaforge_tpu_torch.utils import trace
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -63,11 +64,11 @@ def test_kernel_bit_equal_to_plain(dev, b, p, k, ties):
     rng = np.random.default_rng(b * 100 + k)
     args = [torch.from_numpy(a).to(dev)
             for a in make_inputs(rng, b=b, p=p, ties=ties)]
-    before = ks.launches
+    before = trace.counters()["knn_select.launches"]
     got = ks.knn_select(*args, k)
     want = ks.knn_select_reference(*args, k)
     torch.cuda.synchronize()
-    assert ks.launches == before + 1
+    assert trace.counters()["knn_select.launches"] == before + 1
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g, w)
@@ -81,11 +82,11 @@ def test_pf_edges_kernel_matches_plain(dev, b, p, k, ties):
     rng = np.random.default_rng(b * 100 + k)
     args = [torch.from_numpy(a).to(dev)
             for a in make_inputs(rng, b=b, p=p, ties=ties)]
-    before = ks.launches
+    before = trace.counters()["knn_select.launches"]
     got = ks.knn_pf_edges(*args, k)
     want = ks.knn_pf_edges_reference(*args, k)
     torch.cuda.synchronize()
-    assert ks.launches == before + 1
+    assert trace.counters()["knn_select.launches"] == before + 1
     worst = 0.0
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
@@ -154,12 +155,12 @@ def test_pp_kernel_matches_plain(dev, case, dtype):
     atol 1e-3, the reason beside it)."""
     from pharmaforge_tpu_torch.ops import pp_message as ppm
     args, kw = chip_smoke.pp_case(dev, dtype=dtype, **PP_CASES[case])
-    before = ppm.launches
+    before = trace.counters()["pp_message.launches"]
     with torch.no_grad():
         got = ppm.fused_message_agg(*args, **kw)
         want = ppm.message_agg_reference(*args, **kw)
     torch.cuda.synchronize()
-    assert ppm.launches == before + 1
+    assert trace.counters()["pp_message.launches"] == before + 1
     chip_smoke.compare(case, got, want, chip_smoke.PP_TOL[dtype])
 
 
@@ -261,10 +262,10 @@ def test_pp_backward_kernel_matches_plain(dev, case, dtype):
     cot = (torch.randn(b, nd, kw["scalar_size"], generator=gen, device=dev),
            torch.randn(b, nd, kw["vector_size"], 3, generator=gen,
                        device=dev))
-    before = ppm.bwd_launches
+    before = trace.counters()["pp_message.bwd_launches"]
     got = cs.ppbwd_grads(args, kw, True, cot)
     torch.cuda.synchronize()
-    assert ppm.bwd_launches == before + 1
+    assert trace.counters()["pp_message.bwd_launches"] == before + 1
     want = cs.ppbwd_want(args, kw, dtype, cot)
     bound = None
     if dtype == "bfloat16":
@@ -290,10 +291,10 @@ def test_pp_backward_shared_memory_fits_deeper_chains(dev, n_gvps, dtype):
     b, nd = args[0].shape[0], args[2].mask.shape[1]
     cot = (torch.ones(b, nd, kw["scalar_size"], device=dev),
            torch.ones(b, nd, kw["vector_size"], 3, device=dev))
-    before = ppm.bwd_launches
+    before = trace.counters()["pp_message.bwd_launches"]
     got = cs.ppbwd_grads(args, kw, True, cot)
     torch.cuda.synchronize()
-    assert ppm.bwd_launches == before + 1
+    assert trace.counters()["pp_message.bwd_launches"] == before + 1
     assert all(bool(torch.isfinite(g).all()) for g in got)
 
 
@@ -356,7 +357,9 @@ def test_captured_chain_matches_eager_step_loop(dev, unroll):
     assert chip_smoke.read_replayed()["knn_select"] == 12
     # a first call: the warm-up step, then U steps and the T mod U left
     # captured
-    assert ks.launches == 1 + u + 12 % u
+    counts = trace.counters()
+    assert counts["knn_select.launches"] == 1 + u + 12 % u
+    assert counts["chain.captures"] == 1
     for key in ("pharm_x", "pharm_h", "traj_x", "traj_h"):
         err = float((got[key] - want[key]).abs().max())
         assert err < 2e-3, (key, err)
@@ -371,7 +374,9 @@ def test_kept_graphs_serve_a_later_chain(dev):
     chip_smoke.reset_launches()
     got = model.sample_given_receptor(batch, **later)
     torch.cuda.synchronize()
-    assert model._chain_graphs is graphs and ks.launches == 0
+    counts = trace.counters()
+    assert model._chain_graphs is graphs and counts["knn_select.launches"] == 0
+    assert counts["chain.captures"] == 0
     assert chip_smoke.read_replayed()["knn_select"] == 12
     want = chip_smoke.eager_chain(model, batch, **later)
     for key in ("pharm_x", "traj_x"):
@@ -490,11 +495,13 @@ def test_captured_validation_matches_eager(dev, tmp_path):
     generator state: every metric within rtol 1e-5, the generators'
     states equal, 1 K1 and 2 K2 a batch replayed."""
     trainer, dm = fit_setup(dev, tmp_path)
+    before = trace.counters()["eval.captures"]
     want, got, same, val = validate_pair(trainer, dm)
     assert set(got) == set(want) and same
     assert chip_smoke.metric_miss(want, got) <= 1, (want, got)
     assert chip_smoke.check_vals("validate", [val], captured=True) >= 2
     assert val["built"] == len(chip_smoke.eval_graphs(trainer.model)) == 2
+    assert trace.counters()["eval.captures"] - before == 2
 
 
 def test_captured_validation_after_a_train_call(dev, tmp_path):
@@ -506,9 +513,12 @@ def test_captured_validation_after_a_train_call(dev, tmp_path):
     validate_pair(trainer, dm)
     batch = next(iter(dm.train_dataloader(0)))
     trainer.train_call([pad_batch_to_multiple(batch, 4)[0]])
+    before = trace.counters()["eval.captures"]
     want, got, same, val = validate_pair(trainer, dm)
     assert same and chip_smoke.metric_miss(want, got) <= 1, (want, got)
     assert val["built"] == 0 and val["replays"] == val["batches"]
+    # a kept signature replays and never captures
+    assert trace.counters()["eval.captures"] == before
 
 
 def nccl_validation(state: dict, batch) -> tuple:
@@ -526,10 +536,10 @@ def nccl_validation(state: dict, batch) -> tuple:
     gens = [torch.Generator(device=dev).manual_seed(2) for _ in range(2)]
     names, out = train_state.eager_eval(model, local, gens[0], rows)
     want = dict(zip(names, out.tolist()))
-    replays = diffusion.eval_graph_replays
+    replays = trace.counters()["eval.replays"]
     got = train_state.eval_step(model, local, gens[1], rows)
     return (want, got, torch.equal(*(g.get_state() for g in gens)),
-            diffusion.eval_graph_replays - replays,
+            trace.counters()["eval.replays"] - replays,
             train_state.step_mode(dev))
 
 

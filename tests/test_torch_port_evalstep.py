@@ -41,7 +41,6 @@ from pharmaforge_tpu_torch.data.synthetic import (
     make_synthetic_processed_dataset,
 )
 from pharmaforge_tpu_torch.interop import params_from_jax
-from pharmaforge_tpu_torch.models import diffusion
 from pharmaforge_tpu_torch.models.diffusion import (
     DiffusionConfig,
     PharmacophoreDiffusion,
@@ -52,6 +51,7 @@ from pharmaforge_tpu_torch.training.train_state import (
     multi_train_step,
 )
 from pharmaforge_tpu_torch.training.trainer import Trainer
+from pharmaforge_tpu_torch.utils import trace
 from tests.conftest import make_complex_batch
 from tests.test_torch_port_multistep import (
     RecordedGraph,
@@ -149,7 +149,7 @@ def test_runner_replays_match_eager_validation(one_thread, monkeypatch):
     want = run_ops(eager, ops + [("val", b)])
     recorded_eval(monkeypatch)
     RecordedGraph.made = 0
-    diffusion.eval_graph_replays = 0
+    trace.reset()
     runner = clone_setup(base)
     got = run_ops(runner, ops)
     for i, ((op, _), g, w) in enumerate(zip(ops, got, want)):
@@ -157,12 +157,14 @@ def test_runner_replays_match_eager_validation(one_thread, monkeypatch):
         for key in w:
             assert np.array_equal(g[key], w[key]), (i, op, key)
     n_val = sum(op == "val" for op, _ in ops)
-    assert diffusion.eval_graph_replays == n_val
+    assert trace.counters()["eval.replays"] == n_val
     kept = runner[0]._eval_graphs
     assert sorted(g.inputs["prot_x"].shape[1] for g in kept.values()) == \
         [24, 40]
     # two validation graphs and the train graphs of 2 and 1 steps
     assert RecordedGraph.made == 4
+    counts = trace.counters()
+    assert (counts["eval.captures"], counts["train.captures"]) == (2, 2)
     assert not runner[0].training
     # a weight in new storage frees the kept validation graphs
     param = next(runner[0].parameters())

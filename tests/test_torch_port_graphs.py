@@ -36,6 +36,7 @@ from pharmaforge_tpu.models.diffusion import (
 from pharmaforge_tpu_torch.data.batch import PharmComplexBatch, tile_pocket
 from pharmaforge_tpu_torch.interop import params_from_jax
 from pharmaforge_tpu_torch.models import diffusion
+from pharmaforge_tpu_torch.utils import trace
 from pharmaforge_tpu_torch.models.diffusion import (
     DiffusionConfig,
     PharmacophoreDiffusion,
@@ -273,14 +274,15 @@ def test_runner_replays_and_reuses_its_graphs(monkeypatch, unroll):
     model = with_unroll(base, unroll)
     graphs = []
     for n, w in zip((noise, second), want):
-        diffusion.graph_replays = 0
+        trace.reset()
         chain = model.chain_setup(batch, noise=n, **kw)
         g = model._graphs_for(chain, unroll)
         g.run()
         got = model.chain_result(g.chain)
         graphs.append(g)
         u = min(unroll, T)
-        assert diffusion.graph_replays == T // u + int(T % u > 0)
+        assert trace.counters()["chain.replays"] == \
+            T // u + int(T % u > 0)
         assert [len(x.steps) for x, _, _ in g.graphs] == \
             [u] + ([T % u] if T % u else [])
         for key in w:

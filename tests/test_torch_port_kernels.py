@@ -18,6 +18,7 @@ from pharmaforge_tpu.ops.pallas.knn_select import (
 )
 from pharmaforge_tpu_torch.ops import _build
 from pharmaforge_tpu_torch.ops import knn_select as ks
+from pharmaforge_tpu_torch.utils import trace
 
 BIG = 1e30
 
@@ -91,10 +92,10 @@ def test_exhausted_passes_walk_invalid_slots_in_index_order(rng):
 
 def test_wrapper_runs_plain_version_on_cpu_and_counts_nothing(rng):
     args = [torch.from_numpy(a) for a in make_inputs(rng, ties=True)]
-    before = ks.launches
+    before = trace.counters()["knn_select.launches"]
     got = ks.knn_select(*args, 5)
     want = ks.knn_select_reference(*args, 5)
-    assert ks.launches == before
+    assert trace.counters()["knn_select.launches"] == before
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert got[0].dtype == torch.int32

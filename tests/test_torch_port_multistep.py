@@ -52,7 +52,6 @@ from pharmaforge_tpu_torch.data.synthetic import (
     make_synthetic_processed_dataset,
 )
 from pharmaforge_tpu_torch.interop import params_from_jax
-from pharmaforge_tpu_torch.models import diffusion
 from pharmaforge_tpu_torch.models.diffusion import (
     DiffusionConfig,
     PharmacophoreDiffusion,
@@ -64,6 +63,7 @@ from pharmaforge_tpu_torch.training.train_state import (
     train_step,
 )
 from pharmaforge_tpu_torch.training.trainer import Trainer
+from pharmaforge_tpu_torch.utils import trace
 from tests.conftest import make_complex_batch
 from tests.test_torch_port_train import (
     ELEMENTS,
@@ -287,20 +287,20 @@ def test_runner_replays_match_eager_calls(one_thread, monkeypatch):
                              lr) for bs, lr in calls]
     recorded_capture(monkeypatch)
     RecordedGraph.made = 0
-    diffusion.train_graph_replays = 0
+    trace.reset()
     runner = clone_setup(base, accumulate=3)
     for i, ((bs, lr), w) in enumerate(zip(calls, want)):
         got = multi_train_step(*runner[:2], tbatch.stack_batches(bs),
                                runner[2], lr)
         for key in w:
             assert np.array_equal(got[key], w[key]), (i, key)
-        assert diffusion.train_graph_replays == i + 1
+        assert trace.counters()["train.replays"] == i + 1
     assert_same_state(eager, runner)
     kept = runner[1].train_graphs
     assert sorted((g.k, g.phase) for g in kept.values()) == \
         [(1, 1), (2, 0), (2, 2)]
     # the last two calls replayed kept graphs
-    assert RecordedGraph.made == 3
+    assert RecordedGraph.made == 3 == trace.counters()["train.captures"]
     # a weight in new storage frees the kept graphs
     param = next(runner[0].parameters())
     old = param.data
@@ -475,4 +475,5 @@ def test_trainer_calls_follow_the_chunk_rule(tmp_path, monkeypatch):
     losses = [r["train total loss"] for r in rows]
     assert np.isfinite(losses).all()
     assert np.mean(losses[-4:]) < np.mean(losses[:4])
-    assert len(trainer.step_seconds) == n_steps
+    # one optimizer step counted per batch
+    assert trainer.global_step == n_steps

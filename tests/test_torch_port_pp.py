@@ -52,6 +52,7 @@ from pharmaforge_tpu_torch.models.diffusion import (
 )
 from pharmaforge_tpu_torch.models.gvp import GVP
 from pharmaforge_tpu_torch.ops import pp_message as ppm
+from pharmaforge_tpu_torch.utils import trace
 
 CUTOFFS = {"pp": 3.5, "pf": 8.0, "fp": 8.0, "ff": 9.0}
 TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
@@ -197,7 +198,7 @@ def test_wrapper_on_cpu_is_the_plain_version_grouped_equals_expanded(rng):
     c = k2_case(rng, copies=3)
     gvps, kw = port_gvps(c), kw_of(c, "float32")
     pre_s, planes = t(c["pre_s"]), [t(q) for q in c["planes"]]
-    before = ppm.launches
+    before = trace.counters()["pp_message.launches"]
     with torch.no_grad():
         grouped = ppm.fused_message_agg(pre_s, planes, port_edge(c), gvps,
                                         copies=3, **kw)
@@ -206,7 +207,8 @@ def test_wrapper_on_cpu_is_the_plain_version_grouped_equals_expanded(rng):
                                          **kw)
         plain = ppm.message_agg_reference(pre_s, planes, port_edge(c), gvps,
                                           copies=3, **kw)
-    assert ppm.launches == before        # no kernel on the CPU
+    # no kernel on the CPU
+    assert trace.counters()["pp_message.launches"] == before
     for a, b, p in zip(grouped, expanded, plain):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
                                    atol=1e-5)

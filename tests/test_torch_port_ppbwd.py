@@ -18,6 +18,7 @@ import torch
 
 from pharmaforge_tpu.ops.pallas import pp_message as jppm
 from pharmaforge_tpu_torch.ops import pp_message as ppm
+from pharmaforge_tpu_torch.utils import trace
 from tests.test_torch_port_pp import jax_side, k2_case, port_edge, port_gvps, t
 
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
@@ -106,10 +107,12 @@ def test_wrapper_is_differentiable_on_cpu(rng):
     """On CPU tensors the wrapper is the plain version, so autograd through
     it gives the plain version's gradients exactly, and no kernel runs."""
     c = k2_case(rng, copies=3, hj=5)
-    before = (ppm.launches, ppm.bwd_launches)
+    before = trace.counters()
     got = _port_grads(c, ppm.fused_message_agg)
     want = _port_grads(c, ppm.message_agg_reference)
-    assert (ppm.launches, ppm.bwd_launches) == before
+    after = trace.counters()
+    for name in ("pp_message.launches", "pp_message.bwd_launches"):
+        assert after[name] == before[name]
     for a, b in zip(jax.tree_util.tree_leaves(got),
                     jax.tree_util.tree_leaves(want)):
         np.testing.assert_array_equal(a, b)
