@@ -12,8 +12,8 @@
 
 Phases, one line each, then a `wall:` line with the phase's seconds; any
 failure raises and the script exits non-zero. They run in the order build,
-preprocess, knn, golden, graphs, main, pp, fullscale, fullwidth, tables,
-ppbwd, trainstep, evalstep, train, dist, cli, bench.
+preprocess, knn, golden, graphs, main, pp, gvpchain, fullscale, fullwidth,
+tables, ppbwd, trainstep, evalstep, train, dist, cli, bench.
 
 Every sampling chain on the card runs as CUDA graph replays
 (`models/diffusion.py::ChainGraphs`: a warm-up step, U =
@@ -103,6 +103,15 @@ graph per batch shape, `read_eval_replayed`, `check_vals`).
                 training shape, and of the wrapper call in bf16 in the
                 compact, clean and dirty layouts, each beside its bound, of
                 the plain version, and the eager time;
+   gvpchain -- the GVP-chain kernel (K4) against the plain chain in the
+                chain's dtype at the full-screen step's shapes (960 to
+                30,720 rows, `GVP_CHAIN_CASES`) and the other dtype of each
+                chain, within `GVP_CHAIN_TOL`; two launches bit-equal, a
+                captured launch bit-equal to eager; the step's shapes timed
+                beside K4's bound and the plain chain (no library call
+                computes a GVP chain); a full-screen chain with K4 against
+                the plain chains within the benchmark's `x_gap_median` and
+                `h_gap` limits, 21 K4 launches a step replayed;
 6. fullscale -- the JAX package's full-scale sampling path: the
                 reference-size model (n_convs=4, T=1000, endpoint, bf16
                 edge chains, same widths, random weights from a seed) with
@@ -356,18 +365,19 @@ def floor_library() -> ctypes.CDLL:
 def phase_build() -> None:
     from pharmaforge_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+    built = KERNELS + ("gvp_chain",)
+    with ThreadPoolExecutor(len(built) + 1) as pool:
         floor = pool.submit(build_floor)
-        libs = list(pool.map(_build.build, KERNELS))
+        libs = list(pool.map(_build.build, built))
         floor.result()
     secs = time.perf_counter() - t0
-    for name, lib in zip(KERNELS, libs):
+    for name, lib in zip(built, libs):
         ptxas = [ln.strip() for ln in
                  lib.with_suffix(".log").read_text().splitlines()
                  if "registers" in ln or "smem" in ln or "spill" in ln]
         print(f"build: {name}.cu -> {lib.name}; {' | '.join(ptxas)}",
               flush=True)
-    print(f"build: {len(KERNELS)} kernels and the empty kernel in "
+    print(f"build: {len(built)} kernels and the empty kernel in "
           f"{secs:.2f} s", flush=True)
 
 
@@ -4380,6 +4390,274 @@ def phase_preprocess(dev, pairs: int = 96, workers: int = 4,
     return fit
 
 
+# ------------------------------------------------------------- gvp chain
+
+# K4's cases: (chain, rows, dtype). The first eight are the rows and
+# dtypes of a full-screen denoiser step (pforge-full at 4 pockets x 30, 256
+# prot slots, 230 atoms): the noise head and the pharm updates (960), the
+# clean prot update (1,024), the pf and fp message chains and the compact
+# prot tail (4,800), the ff chains (7,680), the first conv's group-level pp
+# chain (16,384) and the per-copy prot updates (30,720). The rest take the
+# other dtype of each chain, and a ragged last tile.
+GVP_CHAIN_CASES = {
+    "noise-960": ("noise", 960, "float32"),
+    "pharm-update-960": ("update", 960, "float32"),
+    "clean-update-1024": ("update", 1024, "float32"),
+    "pf-message-4800": ("message", 4800, "bfloat16"),
+    "tail-update-4800": ("update", 4800, "float32"),
+    "ff-message-7680": ("message", 7680, "bfloat16"),
+    "pp-message-16384": ("message", 16384, "bfloat16"),
+    "prot-update-30720": ("update", 30720, "float32"),
+    "message-fp32-4800": ("message", 4800, "float32"),
+    "update-bf16-7680": ("update", 7680, "bfloat16"),
+    "noise-bf16-960": ("noise", 960, "bfloat16"),
+    "update-ragged-1001": ("update", 1001, "float32"),
+}
+# the step's shapes, in the order above
+GVP_CHAIN_STEP = tuple(GVP_CHAIN_CASES)[:8]
+
+
+def gvp_chain_case(dev, name: str) -> tuple:
+    """Case `name`'s chain (pforge-full's widths: 128 scalars, 16
+    vectors; the message chain's 3 GVPs on (scalars ++ 16 RBF, direction
+    ++ vectors), the update chain's 2 square GVPs, the noise head's 4 with
+    the identity-gated (64 scalars, 1 vector) last), its weights drawn
+    from seed 0, and normal inputs in its dtype: (gvps, feats, vectors)."""
+    from pharmaforge_tpu_torch.models.conv import message_specs
+    from pharmaforge_tpu_torch.models.dynamics import NoisePredictionBlock
+    from pharmaforge_tpu_torch.models.gvp import (GVPChain, gvp_specs,
+                                                  reset_parameters_)
+    kind, rows, dtype = GVP_CHAIN_CASES[name]
+    chain = {"message": lambda: GVPChain(message_specs(3, 16, 128, 16)),
+             "update": lambda: GVPChain(gvp_specs(2, 16, 128)),
+             "noise": lambda: NoisePredictionBlock(128, 6, 16,
+                                                   n_gvps=4).gvps}[kind]()
+    gen = torch.Generator().manual_seed(0)
+    reset_parameters_(chain, gen).to(dev).requires_grad_(False)
+    s_in, v_in = chain[0].to_feats_out[0].weight.shape[1] \
+        - chain[0].Wh.shape[1], chain[0].Wh.shape[0]
+    dt = getattr(torch, dtype)
+    feats = torch.randn(rows, s_in, generator=gen).to(dev, dt)
+    vectors = torch.randn(rows, v_in, 3, generator=gen).to(dev, dt)
+    return list(chain), feats, vectors
+
+
+def gvp_chain_cost(gvps, rows: int, dtype: str) -> tuple:
+    """(bytes, operations) of one K4 call: its inputs and outputs at the
+    dtype's width and the fp32 weights each read once; two operations a
+    multiply-add of the five products of every GVP over every row."""
+    from pharmaforge_tpu_torch.ops.gvp_chain import layer_dims
+    es = 2 if dtype == "bfloat16" else 4
+    dims = layer_dims(gvps)
+    macs = sum(3 * v_in * h + 3 * h * u + (s_in + h) * o + o * u
+               for v_in, h, u, s_in, o, *_ in dims)
+    n_w = sum(p.numel() for g in gvps for p in g.parameters())
+    v_in, s_in = dims[0][0], dims[0][3]
+    u, o = dims[-1][2], dims[-1][4]
+    n_bytes = rows * es * (s_in + 3 * v_in + o + 3 * u) + 4 * n_w
+    return n_bytes, 2 * macs * rows
+
+
+def gvp_chain_bound_ms(gvps, rows: int, dtype: str) -> tuple:
+    """(least milliseconds, "bytes" or "operations"): K4's call at 3.35
+    TB/s or at the dtype's peak (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s
+    fp32 FMA)."""
+    n_bytes, ops = gvp_chain_cost(gvps, rows, dtype)
+    by_bytes = n_bytes / PEAK_BYTES_PER_S
+    by_ops = ops / (PEAK_BF16_OPS if dtype == "bfloat16" else PEAK_FP32_OPS)
+    return (1e3 * max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def gvp_chain_gaps(got, want) -> dict:
+    """K4's outputs against the plain chain's: the largest absolute gap, and
+    the largest gap in units of one rounding step of the dtype at the
+    plain output (bf16: 2^-8 |want|, fp32: 2^-24 |want|, each at least
+    that of 1e-3), over scalars and vectors."""
+    worst, steps = 0.0, 0.0
+    for g, w in zip(got, want):
+        d = (g.float() - w.float()).abs()
+        ulp = 2.0 ** (-8 if w.dtype == torch.bfloat16 else -24)
+        unit = ulp * torch.clamp(w.float().abs(), min=1e-3)
+        worst = max(worst, float(d.max()))
+        steps = max(steps, float((d / unit).max()))
+    return {"max_abs": worst, "max_steps": steps}
+
+
+# K4 against its plain twin in the chain's dtype. fp32: the same sums in
+# another order (FMA, k in turn, against cuBLAS's fp32 GEMM with TF32 off)
+# through 2-4 GVPs: a few fp32 rounding steps. bf16: both round every
+# stored tensor to bf16, and the tensor cores sum in another order than
+# cuBLAS's, so an output can sit on the other side of a bf16 rounding
+# midpoint, and that step passes on through the chain's later GVPs.
+GVP_CHAIN_TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
+                 "bfloat16": dict(rtol=2 ** -6, atol=2 ** -8)}
+
+
+@contextlib.contextmanager
+def plain_gvp_chains():
+    """Inside the block every GVP chain runs the plain chain on the card
+    too (`models/gvp.py::run_gvps` finds `gvp_chain_reference` where it
+    calls `fused_gvp_chain`): the path before K4, for comparison. A graph
+    captured inside keeps it; use a fresh model."""
+    from pharmaforge_tpu_torch.models import gvp
+    real = gvp.fused_gvp_chain
+    gvp.fused_gvp_chain = gvp.gvp_chain_reference
+    try:
+        yield
+    finally:
+        gvp.fused_gvp_chain = real
+
+
+def gvp_chain_run(dev, name: str) -> dict:
+    """Case `name` on the card: K4 against the plain chain (gaps and the
+    tolerance's excess, 1 at its edge), two launches bit-equal, one
+    captured in a CUDA graph bit-equal to eager, the launch counted."""
+    from pharmaforge_tpu_torch.ops.gvp_chain import (fused_gvp_chain,
+                                                     gvp_chain_reference)
+    from pharmaforge_tpu_torch.utils import trace
+    gvps, feats, vectors = gvp_chain_case(dev, name)
+    dtype = GVP_CHAIN_CASES[name][2]
+    with torch.no_grad():
+        before = trace.counters()["gvp_chain.launches"]
+        got = fused_gvp_chain(gvps, feats, vectors)
+        again = fused_gvp_chain(gvps, feats, vectors)
+        torch.cuda.synchronize()
+        launched = trace.counters()["gvp_chain.launches"] - before
+        want = gvp_chain_reference(gvps, feats, vectors)
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fused_gvp_chain(gvps, feats, vectors)
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            captured = fused_gvp_chain(gvps, feats, vectors)
+        graph.replay()
+        torch.cuda.synchronize()
+    tol = GVP_CHAIN_TOL[dtype]
+    over = max(float(((g.float() - w.float()).abs()
+                      / (tol["atol"] + tol["rtol"] * w.float().abs())).max())
+               for g, w in zip(got, want))
+    return {"name": name, "dtype": dtype, **gvp_chain_gaps(got, want),
+            "tol_units": over, "launches": launched,
+            "repeat_equal": all(torch.equal(a, b) for a, b in zip(got, again)),
+            "graph_equal": all(torch.equal(a, b)
+                               for a, b in zip(got, captured)),
+            "shapes": [tuple(t.shape) for t in got]}
+
+
+def gvp_chain_times(dev, name: str) -> dict:
+    """Case `name`'s milliseconds a call, K4 and the plain chain, each from
+    a CUDA-graph replay, beside K4's bound."""
+    from pharmaforge_tpu_torch.ops.gvp_chain import (fused_gvp_chain,
+                                                     gvp_chain_reference)
+    gvps, feats, vectors = gvp_chain_case(dev, name)
+    _, rows, dtype = GVP_CHAIN_CASES[name]
+    with torch.no_grad():
+        k4 = graph_ms(lambda: fused_gvp_chain(gvps, feats, vectors))
+        plain = graph_ms(lambda: gvp_chain_reference(gvps, feats, vectors))
+    bound, by = gvp_chain_bound_ms(gvps, rows, dtype)
+    return {"ms": k4, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "roofline": bound / k4, "library": "none"}
+
+
+def fullscale_gvp_gaps(dev) -> dict:
+    """One full-screen call's chain (pforge-full: `full_config`, bf16 edge
+    chains, the correction at the probed k_out; 4 pockets x 30 rows of
+    230-atom pockets, injected noise from seed 3) with K4 and
+    with the plain chains (`plain_gvp_chains`), each on a fresh model of
+    the same weights: the benchmark's comparison numbers between the two
+    (`x_gap_median`: the median over rows of each row's widest coordinate
+    gap over its valid centres; `h_gap`: the widest feature gap; `x_gap`:
+    the widest coordinate gap), and the K4 chain's counts: launches
+    captured (the wrappers' count) and replayed, graph replays."""
+    from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
+    from pharmaforge_tpu_torch.utils import trace
+    cfg, per_pocket, atoms = full_config(), 30, 230
+    sizes = np.random.default_rng(0).integers(3, 9, per_pocket)
+    pk = synthetic_pockets(4, atoms)
+    batch = stacked_batch(pk, sizes, atoms)
+
+    def model():
+        return PharmacophoreDiffusion(
+            cfg, device=dev, generator=torch.Generator().manual_seed(0))
+
+    k4 = model()
+    kw = dict(noise=chain_noise(batch.batch_size, cfg.n_timesteps, seed=3),
+              pocket_group_size=per_pocket,
+              pp_k_out=stacked_k_out(k4, pk, atoms))
+    reset_launches()
+    got = k4.sample_given_receptor(batch, **kw)
+    torch.cuda.synchronize()
+    counts = trace.counters()
+    plain = model()
+    with plain_gvp_chains():
+        want = plain.sample_given_receptor(batch, **kw)
+        torch.cuda.synchronize()
+    m = got["pharm_mask"]
+    dx = ((got["pharm_x"] - want["pharm_x"]).abs().amax(-1) * m).amax(-1)
+    dh = (got["pharm_h"] - want["pharm_h"]).abs().amax(-1) * m
+    return {"x_gap_median": float(dx.median()), "h_gap": float(dh.max()),
+            "x_gap": float(dx.max()), "rows": int(m.shape[0]),
+            "captured": counts["gvp_chain.launches"],
+            "replayed": counts["chain.replayed.gvp_chain"],
+            "replays": counts["chain.replays"], "steps": cfg.n_timesteps}
+
+
+# the benchmark's limits of full-screen's comparison (PERF.md section 2)
+FULLSCREEN_LIMITS = {"x_gap_median": 2.5e-05, "h_gap": 1.2e-04}
+# K4 launches a full-scale denoiser call: 12 message chains, 8 update
+# chains, the noise head
+GVP_CHAINS_PER_STEP = 21
+
+
+def phase_gvpchain(dev) -> dict:
+    """K4 (`ops/gvp_chain.py`) on the card: every case of GVP_CHAIN_CASES
+    against the plain chain in its dtype within GVP_CHAIN_TOL, two
+    launches bit-equal, a captured graph bit-equal to eager; the step's
+    shapes timed (K4 and the plain chain from graph replays, beside K4's
+    bound; no library call computes a GVP chain); a full-screen chain
+    with K4 against the plain chains within the benchmark's limits, 21 K4
+    launches a step replayed. Returns the kernels-line entry."""
+    lines = []
+    for name in GVP_CHAIN_CASES:
+        r = gvp_chain_run(dev, name)
+        check(r["launches"] == 2, f"gvpchain {name}: {r['launches']} "
+                                  f"launches counted for 2 calls")
+        check(r["repeat_equal"], f"gvpchain {name}: repeats differ")
+        check(r["graph_equal"], f"gvpchain {name}: the captured call "
+                                f"differs from eager")
+        line = (f"{name} {r['dtype']} {r['shapes']}: max abs "
+                f"{r['max_abs']:.3e}, {r['max_steps']:.2f} rounding steps, "
+                f"{r['tol_units']:.3f} of the tolerance")
+        if name in GVP_CHAIN_STEP:
+            t = gvp_chain_times(dev, name)
+            line += (f"; {t['ms'] * 1e3:.2f} us a call (plain "
+                     f"{t['plain_ms'] * 1e3:.2f} us; bound "
+                     f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}, "
+                     f"{100 * t['roofline']:.2f}%); library call: none")
+        print(f"gvpchain: {line}", flush=True)
+        lines.append(line)
+        check(r["tol_units"] <= 1.0, f"gvpchain {name}: beyond the "
+                                     f"tolerance ({r['tol_units']:.3f})")
+    g = fullscale_gvp_gaps(dev)
+    print(f"gvpchain: full-screen chain, K4 against the plain chains over "
+          f"{g['rows']} rows at T={g['steps']}: x_gap_median "
+          f"{g['x_gap_median']:.3e} (limit "
+          f"{FULLSCREEN_LIMITS['x_gap_median']}), h_gap {g['h_gap']:.3e} "
+          f"(limit {FULLSCREEN_LIMITS['h_gap']}), x_gap {g['x_gap']:.3e}; "
+          f"K4 launches {g['captured']} counted by the wrapper, "
+          f"{g['replayed']} replayed in {g['replays']} replays", flush=True)
+    for key, limit in FULLSCREEN_LIMITS.items():
+        check(g[key] <= limit, f"gvpchain: full-screen {key} {g[key]:.3e} "
+                               f"above {limit}")
+    check(g["replayed"] == GVP_CHAINS_PER_STEP * g["steps"],
+          f"gvpchain: {g['replayed']} K4 launches replayed, expected "
+          f"{GVP_CHAINS_PER_STEP} x {g['steps']}")
+    return {"name": "gvp_chain", "cases": lines, "fullscreen": g}
+
+
 def timed(phase, *args, **kw):
     """`phase(*args, **kw)`, its wall seconds printed after it."""
     t0 = time.perf_counter()
@@ -4411,6 +4689,7 @@ def main() -> int:
     timed(phase_graphs, dev, profile=profile)
     dev_launches = timed(phase_main, dev, profile)
     pp = timed(phase_pp, dev)
+    gvp = timed(phase_gvpchain, dev)
     per_step: dict = {}
     full_launches = timed(phase_fullscale, dev, profile, keep=per_step)
     width_launches = timed(phase_fullwidth, dev, profile)
@@ -4451,7 +4730,7 @@ def main() -> int:
             check(kern[key] > 0, f"{kern['name']}: not launched in "
                                  f"{key}")
     print(card())
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels + [gvp]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -50,6 +50,7 @@ from pharmaforge_tpu_torch.models.gvp import (
     GVPDropout,
     GVPLayerNorm,
     gvp_specs,
+    run_gvps,
 )
 from pharmaforge_tpu_torch.ops.geometry import norm_no_nan
 from pharmaforge_tpu_torch.ops.pp_message import (
@@ -141,9 +142,9 @@ def _chain_from_table(chain: GVPChain, pre_g, edge, n_vectors: int,
     gating = nn.functional.linear(feats, gates.weight.to(dtype),
                                   gates.bias.to(dtype))
     data = (feats, g0.vectors_activation(gating)[..., None] * vu)
-    for layer in list(chain)[1:]:
-        data = layer(data)
-    return data
+    if len(chain) == 1:
+        return data
+    return run_gvps(list(chain)[1:], data)
 
 
 def edge_messages(chain: GVPChain, h_src, v_src, edge,

@@ -785,7 +785,8 @@ def _clone(tree):
 KERNEL_COUNTERS = {"knn_select": "knn_select.launches",
                    "pp_message": "pp_message.launches",
                    "pp_message_bwd": "pp_message.bwd_launches",
-                   "corrections": "conv.corrections"}
+                   "corrections": "conv.corrections",
+                   "gvp_chain": "gvp_chain.launches"}
 
 
 @contextlib.contextmanager

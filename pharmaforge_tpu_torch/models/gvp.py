@@ -20,6 +20,11 @@ import torch
 from torch import nn
 
 from pharmaforge_tpu_torch.ops.geometry import norm_no_nan
+from pharmaforge_tpu_torch.ops.gvp_chain import (
+    fused_gvp_chain,
+    gvp_chain_reference,
+    needs_grad,
+)
 
 GVPData = Tuple[torch.Tensor, torch.Tensor]
 
@@ -81,17 +86,27 @@ class GVP(nn.Module):
         return feats_out, self.vectors_activation(gating)[..., None] * vu
 
 
+def run_gvps(gvps: Sequence[GVP], data: GVPData) -> GVPData:
+    """The GVPs `gvps` applied in turn to `data`: one launch of the chain
+    kernel (`ops/gvp_chain.py::fused_gvp_chain`, K4) where the tensors lie
+    on the card and no gradient is needed (grad mode off, or nothing that
+    enters the chain requires grad: sampling, validation), else the plain
+    PyTorch chain (the CPU, training)."""
+    feats, vectors = data
+    if feats.is_cuda and not needs_grad(gvps, feats, vectors):
+        return fused_gvp_chain(gvps, feats, vectors)
+    return gvp_chain_reference(gvps, feats, vectors)
+
+
 class GVPChain(nn.ModuleList):
     """GVPs applied in sequence (the reference's nn.Sequential of GVPs;
-    children are named 0, 1, ...)."""
+    children are named 0, 1, ...), through `run_gvps`."""
 
     def __init__(self, specs: Sequence[dict]):
         super().__init__([GVP(**spec) for spec in specs])
 
     def forward(self, data: GVPData) -> GVPData:
-        for layer in self:
-            data = layer(data)
-        return data
+        return run_gvps(list(self), data)
 
 
 def gvp_specs(n: int, vector_size: int, scalar_size: int) -> list:

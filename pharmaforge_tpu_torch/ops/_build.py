@@ -29,10 +29,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 # per-kernel flags. knn_select: --fmad=false, no multiply-add contraction,
 # so its distances round after every operation exactly as the plain
-# version does (it is held bit-equal). pp_message is held to a tolerance
-# and keeps fused multiply-adds.
+# version does (it is held bit-equal). pp_message and gvp_chain are held
+# to a tolerance and keep fused multiply-adds.
 KERNEL_FLAGS = {"knn_select": ("--fmad=false",), "pp_message": (),
-                "pp_message_bwd": ()}
+                "pp_message_bwd": (), "gvp_chain": ()}
 
 
 def nvcc_flags(name: str) -> tuple:

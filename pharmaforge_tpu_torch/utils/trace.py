@@ -4,8 +4,9 @@ Counters: one registry of named counts (`count`, `counters`, `reset`)
 under dotted names:
 
 * the kernel wrappers' launches, `knn_select.launches`,
-  `pp_message.launches` (K2) and `pp_message.bwd_launches` (K3), and the
-  pocket-copy correction's passes, `conv.corrections`. Inside a CUDA graph
+  `pp_message.launches` (K2), `pp_message.bwd_launches` (K3) and
+  `gvp_chain.launches` (K4), and the pocket-copy correction's passes,
+  `conv.corrections`. Inside a CUDA graph
   capture a launch counts once, where it is captured, not where it is
   replayed;
 * the graph runners' captures and replays: `chain.captures` (one a

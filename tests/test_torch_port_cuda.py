@@ -1,5 +1,5 @@
 """PyTorch/CUDA port on the card: the CUDA kernels (K1's two entries, K2,
-K3) against their plain versions, the golden chain through K1, the
+K3, K4) against their plain versions, the golden chain through K1, the
 reverse chain as CUDA graph replays against its eager step loop, one
 full-width training step on the card against the CPU, captured train
 calls (`training/train_state.py::TrainGraphs`) against eager steps, with
@@ -203,6 +203,88 @@ def test_pp_kernel_refuses_bad_inputs(dev):
                                 for a in (edge.mask, edge.idx, edge.x_dir,
                                           edge.d_rbf)), copies=3)
             ppm.fused_message_agg(pre_s, planes, wide, chain, **kw)
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.GVP_CHAIN_CASES))
+def test_gvp_chain_kernel_matches_plain(dev, case):
+    """K4 against the plain chain in the chain's dtype at the full-screen
+    step's shapes (960 to 30,720 rows) and a few more, within
+    chip_smoke.GVP_CHAIN_TOL (fp32 rtol 1e-5 / atol 1e-6; bf16 rtol 2^-6 /
+    atol 2^-8, the reason beside it); two launches bit-equal, one counted
+    each; a launch captured in a CUDA graph bit-equal to eager."""
+    r = chip_smoke.gvp_chain_run(dev, case)
+    print(r)
+    assert r["launches"] == 2
+    assert r["repeat_equal"] and r["graph_equal"]
+    assert r["tol_units"] <= 1.0
+
+
+def test_gvp_chain_shared_memory_plan_matches_the_kernels(dev):
+    """The wrapper's shared-memory plan (`ops/gvp_chain.py::smem_bytes`),
+    which picks the tile and refuses a chain, equals the kernel's own for
+    every chain kind, dtype and tile height."""
+    from pharmaforge_tpu_torch.ops import gvp_chain as gcm
+    lib = gcm._launcher()
+    for case in ("noise-960", "pf-message-4800", "prot-update-30720"):
+        dims = gcm.layer_dims(chip_smoke.gvp_chain_case(dev, case)[0])
+        flat = gcm._c_dims(dims)
+        for bf16 in (True, False):
+            for rows in gcm.TILE_ROWS:
+                assert lib.gvp_chain_smem_bytes(int(bf16), rows, len(dims),
+                                                flat) \
+                    == gcm.smem_bytes(bf16, rows, dims), (case, bf16, rows)
+
+
+def test_gvp_chain_needs_no_gradient(dev):
+    """A chain whose inputs need a gradient runs the plain chain on the
+    card (no K4 launch) and back-propagates; the wrapper itself refuses
+    such a call."""
+    from pharmaforge_tpu_torch.models.gvp import GVPChain, gvp_specs
+    from pharmaforge_tpu_torch.ops.gvp_chain import fused_gvp_chain
+    chain = GVPChain(gvp_specs(2, 16, 128)).to(dev)
+    feats = torch.randn(64, 128, device=dev, requires_grad=True)
+    vectors = torch.randn(64, 16, 3, device=dev)
+    before = trace.counters()["gvp_chain.launches"]
+    s, v = chain((feats, vectors))
+    (s.sum() + v.sum()).backward()
+    assert trace.counters()["gvp_chain.launches"] == before
+    assert feats.grad is not None
+    assert all(p.grad is not None for p in chain.parameters())
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_gvp_chain(list(chain), feats, vectors)
+    with torch.no_grad():
+        chain((feats, vectors))
+    assert trace.counters()["gvp_chain.launches"] == before + 1
+
+
+def test_fullscreen_chain_with_k4_matches_plain_chains(dev):
+    """One full-screen chain (pforge-full, 4 pockets x 30, T=1000) with K4
+    against the same weights and noise with the plain chains, within the
+    benchmark's `x_gap_median` and `h_gap` limits; 21 K4 launches a step,
+    21,000 replayed."""
+    g = chip_smoke.fullscale_gvp_gaps(dev)
+    print(g)
+    for key, limit in chip_smoke.FULLSCREEN_LIMITS.items():
+        assert g[key] <= limit, key
+    assert g["replayed"] == chip_smoke.GVP_CHAINS_PER_STEP * g["steps"]
+
+
+def test_train_calls_launch_no_gvp_chain_kernel(dev, monkeypatch):
+    """Training needs gradients, so neither the eager steps nor the
+    captured train calls of `chip_smoke.trainstep_cases` reach K4; the
+    last call's replays count none."""
+    from pharmaforge_tpu_torch.ops import gvp_chain as gcm
+    calls = []
+    real = gcm._launch
+    monkeypatch.setattr(gcm, "_launch",
+                        lambda *a: calls.append(1) or real(*a))
+    model, batches = trainstep_case(dev, 3)
+    chip_smoke.trainstep_cases(dev, model, batches, 3)
+    counts = trace.counters()
+    assert counts["train.replays"] > 0
+    assert not calls
+    assert counts["gvp_chain.launches"] == 0
+    assert counts["train.replayed.gvp_chain"] == 0
 
 
 def test_golden_knn_chain_on_card(dev):
