@@ -105,9 +105,11 @@ graph per batch shape, `read_eval_replayed`, `check_vals`).
                 the plain version, and the eager time;
    gvpchain -- the GVP-chain kernel (K4) against the plain chain in the
                 chain's dtype at the full-screen step's shapes (960 to
-                30,720 rows, `GVP_CHAIN_CASES`) and the other dtype of each
-                chain, within `GVP_CHAIN_TOL`; two launches bit-equal, a
-                captured launch bit-equal to eager; the step's shapes timed
+                30,720 rows, `GVP_CHAIN_CASES`), the radius-screen
+                message chain (122,880 rows, bf16) and the other dtype of
+                each chain, within `GVP_CHAIN_TOL`; two launches
+                bit-equal, a captured launch bit-equal to eager; the step's
+                shapes and the radius message chain timed
                 beside K4's bound and the plain chain (no library call
                 computes a GVP chain); a full-screen chain with K4 against
                 the plain chains within the benchmark's `x_gap_median` and
@@ -4412,9 +4414,13 @@ GVP_CHAIN_CASES = {
     "update-bf16-7680": ("update", 7680, "bfloat16"),
     "noise-bf16-960": ("noise", 960, "bfloat16"),
     "update-ragged-1001": ("update", 1001, "float32"),
+    # radius-screen's pf and fp message chains: B=60 x F=8 x P=256 rows
+    "radius-message-122880": ("message", 122880, "bfloat16"),
 }
 # the step's shapes, in the order above
 GVP_CHAIN_STEP = tuple(GVP_CHAIN_CASES)[:8]
+# the cases timed: the step's and the radius message chain
+GVP_CHAIN_TIMED = GVP_CHAIN_STEP + ("radius-message-122880",)
 
 
 def gvp_chain_case(dev, name: str) -> tuple:
@@ -4631,7 +4637,7 @@ def phase_gvpchain(dev) -> dict:
         line = (f"{name} {r['dtype']} {r['shapes']}: max abs "
                 f"{r['max_abs']:.3e}, {r['max_steps']:.2f} rounding steps, "
                 f"{r['tol_units']:.3f} of the tolerance")
-        if name in GVP_CHAIN_STEP:
+        if name in GVP_CHAIN_TIMED:
             t = gvp_chain_times(dev, name)
             line += (f"; {t['ms'] * 1e3:.2f} us a call (plain "
                      f"{t['plain_ms'] * 1e3:.2f} us; bound "

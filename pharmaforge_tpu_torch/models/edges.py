@@ -31,6 +31,7 @@ from pharmaforge_tpu_torch.ops.neighbors import (
     knn_mask,
     radius_mask,
 )
+from pharmaforge_tpu_torch.utils import trace
 
 class EdgeData(NamedTuple):
     """One edge type's adjacency + geometry.
@@ -169,6 +170,17 @@ def build_pp_out_edges(ed, k_out: int) -> "tuple[torch.Tensor, torch.Tensor]":
     return out_eid, out_mask
 
 
+def count_radius_pairs(pf_mask: torch.Tensor) -> None:
+    """The radius pf edge's counters (`utils/trace.py`): its rows B*F*P,
+    from the shape; and its valid pairs, which brings the mask's sum to
+    the host, so only while tracing and outside a CUDA graph capture: an
+    untraced or replayed step never syncs for it."""
+    trace.count("edges.pf_radius_rows", pf_mask.numel())
+    if trace.tracing() and not (pf_mask.is_cuda and
+                                torch.cuda.is_current_stream_capturing()):
+        trace.count("edges.pf_radius_pairs", int(pf_mask.sum()))
+
+
 def build_edge_bundle(pharm_x, pharm_mask, prot_x, prot_mask, cutoffs,
                       ff_k: int, pf_k: int, pp_edge) -> Dict[str, object]:
     """All four edge types for one denoiser call (reference
@@ -196,11 +208,15 @@ def build_edge_bundle(pharm_x, pharm_mask, prot_x, prot_mask, cutoffs,
         bundle["fp"] = ReverseEdgeData(mask=mask, idx=idx, x_dir=x_dir_fp,
                                        d_rbf=d_rbf, n_dst=prot_x.shape[1])
     else:
-        pf_mask = radius_mask(pharm_x, pharm_mask, prot_x, prot_mask,
-                              cutoffs["pf"])
-        bundle["pf"] = full_edge_data(pharm_x, prot_x, pf_mask)
-        bundle["fp"] = full_edge_data(prot_x, pharm_x,
-                                      pf_mask.transpose(1, 2))
+        # pf: every (pharm centre, prot atom) pair within r_pf, dense
+        # [B, F, P]; fp: the same pairs reversed, [B, P, F]
+        with trace.span("edges.radius"):
+            pf_mask = radius_mask(pharm_x, pharm_mask, prot_x, prot_mask,
+                                  cutoffs["pf"])
+            count_radius_pairs(pf_mask)
+            bundle["pf"] = full_edge_data(pharm_x, prot_x, pf_mask)
+            bundle["fp"] = full_edge_data(prot_x, pharm_x,
+                                          pf_mask.transpose(1, 2))
 
     bundle["pp"] = pp_edge
     return bundle

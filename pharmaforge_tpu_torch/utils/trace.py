@@ -9,6 +9,11 @@ under dotted names:
   `conv.corrections`. Inside a CUDA graph
   capture a launch counts once, where it is captured, not where it is
   replayed;
+* the radius pf edge (`models/edges.py`, pf_k 0):
+  `edges.pf_radius_rows`, the dense [B, F, P] layout's rows a build
+  (from the shape), and `edges.pf_radius_pairs`, the valid (centre, atom)
+  pairs among them, which reads the mask on the host and so counts only
+  where `tracing()` holds and the stream is not being captured;
 * the graph runners' captures and replays: `chain.captures` (one a
   `ChainGraphs` built), `chain.replays` (one a graph replay) and
   `chain.replayed.<kernel>` (what those replays ran: each replay counts
@@ -35,8 +40,10 @@ trace counts as a device operation.
 Everywhere else it returns one shared null context: the cost of a span
 is then one check of the profiler's state. Each public call opens one
 root span and its phases nest inside it on the same thread, which is the
-parent link. No span sits inside a CUDA graph capture, none adds device
-work or a sync, and none is opened per denoiser step or per replay.
+parent link. None adds device work or a sync, and none is opened per
+replay. One is opened per denoiser call: `edges.radius`, around the
+radius pf/fp edges, where the step runs eagerly (a captured step replays
+without Python).
 
 A thread the profiler did not start records nothing through it
 (`record_function` is thread-local), so the batch prefetcher's producer
@@ -144,6 +151,12 @@ class _Span:
         _ring.append(Record(self.name, self.start_ns, time.perf_counter_ns()))
         self.annotation.__exit__(*exc)
         return False
+
+
+def tracing() -> bool:
+    """Whether the calling thread is profiled: where spans record, and
+    where a counter that reads device data on the host may count."""
+    return _profiling()
 
 
 def span(name: str):
