@@ -106,10 +106,11 @@ graph per batch shape, `read_eval_replayed`, `check_vals`).
    gvpchain -- the GVP-chain kernel (K4) against the plain chain in the
                 chain's dtype at the full-screen step's shapes (960 to
                 30,720 rows, `GVP_CHAIN_CASES`), the radius-screen
-                message chain (122,880 rows, bf16) and the other dtype of
+                message chains (122,880 dense and 61,440 slot rows,
+                bf16) and the other dtype of
                 each chain, within `GVP_CHAIN_TOL`; two launches
                 bit-equal, a captured launch bit-equal to eager; the step's
-                shapes and the radius message chain timed
+                shapes and the radius message chains timed
                 beside K4's bound and the plain chain (no library call
                 computes a GVP chain); a full-screen chain with K4 against
                 the plain chains within the benchmark's `x_gap_median` and
@@ -4414,13 +4415,16 @@ GVP_CHAIN_CASES = {
     "update-bf16-7680": ("update", 7680, "bfloat16"),
     "noise-bf16-960": ("noise", 960, "bfloat16"),
     "update-ragged-1001": ("update", 1001, "float32"),
-    # radius-screen's pf and fp message chains: B=60 x F=8 x P=256 rows
+    # radius-screen's pf and fp message chains: B=60 x F=8 rows over the
+    # dense P=256 prot slots, and over the M=128 radius slots
     "radius-message-122880": ("message", 122880, "bfloat16"),
+    "radius-message-61440": ("message", 61440, "bfloat16"),
 }
 # the step's shapes, in the order above
 GVP_CHAIN_STEP = tuple(GVP_CHAIN_CASES)[:8]
-# the cases timed: the step's and the radius message chain
-GVP_CHAIN_TIMED = GVP_CHAIN_STEP + ("radius-message-122880",)
+# the cases timed: the step's and the radius message chains
+GVP_CHAIN_TIMED = GVP_CHAIN_STEP + ("radius-message-122880",
+                                    "radius-message-61440")
 
 
 def gvp_chain_case(dev, name: str) -> tuple:

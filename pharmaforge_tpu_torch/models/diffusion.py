@@ -41,6 +41,7 @@ from pharmaforge_tpu_torch.models.edges import (
     GroupedEdgeData,
     build_pp_edge,
     build_pp_out_edges,
+    radius_slot_count,
 )
 from pharmaforge_tpu_torch.models.gvp import batch_rows, reset_parameters_
 from pharmaforge_tpu_torch.models.schedules import make_gamma_table
@@ -511,9 +512,12 @@ class PharmacophoreDiffusion(nn.Module):
                     pocket_group_size: int = 1,
                     pp_k_out: int = 0) -> "ReverseChain":
         """Everything a chain does before its first step, once per chain
-        (`sample_given_receptor`'s arguments). Holds the one host sync of
-        a chain (the out-degree check of `build_pp_out_edges`), outside
-        every graph. Span "chain.setup" (`utils/trace.py`)."""
+        (`sample_given_receptor`'s arguments). Holds a chain's host syncs,
+        outside every graph: the out-degree check of `build_pp_out_edges`
+        and, with radius pf edges (pf_k 0), the slot count M of
+        `edges.radius_slot_count` (`inputs["pf_slots"]`, a Python int, so
+        a chain of another M captures its own graphs). Span "chain.setup"
+        (`utils/trace.py`)."""
         with trace.span("chain.setup"):
             return self._chain_setup(batch, generator, init_pharm_com,
                                      visualize_trajectory, noise,
@@ -552,6 +556,13 @@ class PharmacophoreDiffusion(nn.Module):
         else:
             _, pp_edge = build_pp_edge(prot_x0, prot_mask,
                                        self.cutoffs["pp"], cfg.pp_k_max)
+        # radius pf edges on M slots a centre: the pocket's atoms keep
+        # their relative places over the chain, so M holds at every step
+        pf_slots = None
+        if not (self.dynamics.pf_k and self.dynamics.pf_k > 0):
+            c = pocket_group_size
+            pf_slots = radius_slot_count(prot_x0[::c], prot_mask[::c],
+                                         self.cutoffs["pf"])
 
         n_t = cfg.n_timesteps
         coef, t_values = self._schedule()
@@ -580,6 +591,7 @@ class PharmacophoreDiffusion(nn.Module):
                 pharm_mask=pharm_mask, fmask=fmask, prot_h=prot_h,
                 prot_mask=prot_mask, init_prot_com=init_prot_com,
                 pp_edge=pp_edge, pp_out=pp_out, tables=tables,
+                pf_slots=pf_slots,
                 pos_noise=self._tensor(noise["pos"], torch.float32),
                 feat_noise=self._tensor(noise["feat"], torch.float32),
                 coef=coef, t=t_values),
@@ -657,7 +669,7 @@ class PharmacophoreDiffusion(nn.Module):
             inp["prot_mask"], t_arr, pp_edge=pp_edge, pocket_group_size=c,
             pp_out=inp["pp_out"],
             step_tables=None if inp["tables"] is None
-            else inp["tables"].step(i))
+            else inp["tables"].step(i), pf_slots=inp["pf_slots"])
         if cfg.endpoint_param_coord:
             mu_pos = c_x * x_t + c_pred * pred_x
         else:
@@ -727,7 +739,8 @@ class ReverseChain:
     """One reverse chain on the device: `inputs`, which the set-up makes
     and every step reads (pharm_mask, fmask, prot_h, prot_mask,
     init_prot_com, pp_edge at pocket-group level when grouped, pp_out,
-    step tables, pos_noise / feat_noise [T,B,F,.], coef [T,5] from
+    step tables, pf_slots (the radius pf edge's slot count, an int, or
+    None with kNN pf), pos_noise / feat_noise [T,B,F,.], coef [T,5] from
     `_step_coefficients`, t [T]); `state`, which the steps advance in
     place (x, h, prot_x, the step counter i [1] int64, and with a
     trajectory traj_x / traj_h [T+1,B,F,.])."""

@@ -210,7 +210,8 @@ class PharmRecDynamics(nn.Module):
     def forward(self, pharm_h_t, pharm_x_t, pharm_mask, prot_h, prot_x,
                 prot_mask, t, pp_edge, pocket_group_size: int = 1,
                 generator: Optional[torch.Generator] = None, pp_out=None,
-                step_tables: Optional[tuple] = None):
+                step_tables: Optional[tuple] = None,
+                pf_slots: Optional[int] = None):
         """pharm_h_t [B,F,nf], pharm_x_t [B,F,3], pharm_mask [B,F] bool,
         prot_h [B,P,rec_nf], prot_x [B,P,3], prot_mask [B,P] bool, t [B] in
         [0, 1]. `pp_edge` is the static prot-prot edge (EdgeData, or
@@ -230,7 +231,11 @@ class PharmRecDynamics(nn.Module):
         its pf chain gathers the table (JAX dynamics.py:271-291). Eval
         mode only. When the first conv is the compact one, the prot
         scalars stay at group level; otherwise they are repeated per
-        copy."""
+        copy.
+
+        `pf_slots` (radius pf, pf_k 0) is a sampling chain's slot count M
+        (`edges.radius_slot_count`): the pf and fp edges then run on
+        [B, F, M] slots in place of the dense [B, F, P] layout."""
         b, f = pharm_mask.shape
         p = prot_mask.shape[1]
         c = pocket_group_size
@@ -284,7 +289,8 @@ class PharmRecDynamics(nn.Module):
         node_masks = {"pharm": pharm_mask, "prot": prot_mask}
         bundle = build_edge_bundle(pharm_x_t, pharm_mask, prot_x, prot_mask,
                                    self.cutoffs, ff_k=self.ff_k,
-                                   pf_k=self.pf_k, pp_edge=pp_edge)
+                                   pf_k=self.pf_k, pp_edge=pp_edge,
+                                   pf_slots=pf_slots)
         corr = None
         if (pp_out is not None and c > 1 and compact_at is not None
                 and compact_at >= 2

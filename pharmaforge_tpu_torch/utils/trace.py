@@ -10,10 +10,11 @@ under dotted names:
   capture a launch counts once, where it is captured, not where it is
   replayed;
 * the radius pf edge (`models/edges.py`, pf_k 0):
-  `edges.pf_radius_rows`, the dense [B, F, P] layout's rows a build
-  (from the shape), and `edges.pf_radius_pairs`, the valid (centre, atom)
-  pairs among them, which reads the mask on the host and so counts only
-  where `tracing()` holds and the stream is not being captured;
+  `edges.pf_radius_rows`, the rows its pf and fp chains run a build
+  (from the shape: B*F*M on a sampling chain's M radius slots, B*F*P in
+  the dense layout), and `edges.pf_radius_pairs`, the valid (centre,
+  atom) pairs among them, which reads the mask on the host and so counts
+  only where `tracing()` holds and the stream is not being captured;
 * the graph runners' captures and replays: `chain.captures` (one a
   `ChainGraphs` built), `chain.replays` (one a graph replay) and
   `chain.replayed.<kernel>` (what those replays ran: each replay counts

@@ -13,8 +13,8 @@ the CPU at a small size, in fp32.
   build, the reference's count of valid pairs only while profiled, nothing
   inside a CUDA graph capture (a `cuda` test);
 * K4's cost (`portbench/costs/k4.py`) against `chip_smoke`'s at the
-  full-screen step's chains and the radius cell's 122,880-row message
-  chain.
+  full-screen step's chains and the radius cell's message chains (122,880
+  dense rows, 61,440 on its slots).
 """
 
 import argparse
@@ -34,6 +34,7 @@ from pharmaforge_tpu_torch.models.edges import (
     GroupedEdgeData,
     build_edge_bundle,
     build_pp_edge,
+    radius_slot_count,
 )
 from pharmaforge_tpu_torch.models.gvp import GVPChain, gvp_specs
 from pharmaforge_tpu_torch.utils import trace
@@ -73,12 +74,12 @@ def with_model(config: dict, **model) -> dict:
     return config
 
 
-def inputs(config: dict, copies: int, seed: int = 3):
-    """Two pockets of 40 and 36 atoms in 48 slots, `copies` rows each, 8
-    centre slots (8, 5, 3, ... valid) near the cavity, one t a pocket."""
+def inputs(config: dict, copies: int, seed: int = 3, slots: int = 48):
+    """Two pockets of 40 and 36 atoms in `slots` slots, `copies` rows each,
+    8 centre slots (8, 5, 3, ... valid) near the cavity, one t a pocket."""
     gen = np.random.default_rng(seed)
     pockets = common.make_pockets(config, gen, [40, 36])
-    prot_x, prot_h, prot_mask = common.pocket_tensors(pockets, 48, CPU)
+    prot_x, prot_h, prot_mask = common.pocket_tensors(pockets, slots, CPU)
     rep = lambda a: torch.repeat_interleave(a, copies, dim=0)  # noqa: E731
     prot_x, prot_h, prot_mask = rep(prot_x), rep(prot_h), rep(prot_mask)
     b, f, nf = prot_x.shape[0], 8, common.n_ph_types(config)
@@ -190,10 +191,12 @@ def edges_with(**forced):
     pf_k, or cutoffs updated."""
     real = dynamics_mod.build_edge_bundle
 
-    def bundle(px, pm, rx, rm_, cutoffs, ff_k, pf_k, pp_edge):
+    def bundle(px, pm, rx, rm_, cutoffs, ff_k, pf_k, pp_edge,
+               pf_slots=None):
         cutoffs = dict(cutoffs, **forced.get("cutoffs", {}))
         return real(px, pm, rx, rm_, cutoffs, ff_k=ff_k,
-                    pf_k=forced.get("pf_k", pf_k), pp_edge=pp_edge)
+                    pf_k=forced.get("pf_k", pf_k), pp_edge=pp_edge,
+                    pf_slots=pf_slots)
 
     dynamics_mod.build_edge_bundle = bundle
     try:
@@ -242,8 +245,13 @@ def test_the_work_step_counts_the_valid_share():
         wl.work(run)
     finally:
         wl.close()
+    # the chain's rows: B*F*M, M the slot count of the call's pockets
     b, f, p = 6, max(cell.traffic["centres"]), cell.traffic["prot_slots"]
-    assert run.work["pf_radius_rows"] == b * f * p
+    prot_x, _, prot_mask = common.pocket_tensors(
+        [wl.pool[j] for j in wl.done[0][0]], p, CPU)
+    m = radius_slot_count(prot_x, prot_mask, 8.0)
+    assert m < p
+    assert run.work["pf_radius_rows"] == b * f * m
     share = manifest.metric_reader("pf_valid_share.radius")(run)
     assert 0 < share < 100
     assert "k4" not in run.work and "k4_peak_s_per_step" not in run.work
@@ -336,8 +344,7 @@ def chain_of(kind: str):
                      128, 6, 16, n_gvps=4).gvps}[kind]())
 
 
-@pytest.mark.parametrize("case", list(chip_smoke.GVP_CHAIN_STEP)
-                         + ["radius-message-122880"])
+@pytest.mark.parametrize("case", chip_smoke.GVP_CHAIN_TIMED)
 def test_k4_cost_is_chip_smokes(case):
     kind, rows, dtype = chip_smoke.GVP_CHAIN_CASES[case]
     gvps = chain_of(kind)
