@@ -701,8 +701,8 @@ def reset_launches() -> None:
 def read_launches() -> dict:
     """The wrappers' counts: launches made eagerly, and launches captured
     into a graph (counted once, where captured)."""
-    from pharmaforge_tpu_torch.models import diffusion
-    counts = diffusion.kernel_counts()
+    from pharmaforge_tpu_torch.utils import graphs
+    counts = graphs.kernel_counts()
     return {name: counts[name] for name in KERNELS}
 
 
@@ -1700,7 +1700,7 @@ def timed_call(fn) -> tuple:
 def replay_ms(model) -> float:
     """Device milliseconds of the replays alone of `model`'s kept chain
     graphs (CUDA events around `ChainGraphs.run`)."""
-    graphs = model._chain_graphs
+    graphs, = model._chain_graphs.graphs.values()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -1797,7 +1797,7 @@ def phase_graphs(dev, n_pockets: int = 8, fs_pockets: int = 4,
         return model, batch, kw, k_out
 
     def stats(model) -> str:
-        g = model._chain_graphs
+        g, = model._chain_graphs.graphs.values()
         return (f"capture {g.capture_ms:.1f} ms host (warm-up step "
                 f"included), pool {g.pool_bytes} bytes, per capture "
                 f"{[c for _, _, c in g.graphs]}")
@@ -2366,7 +2366,7 @@ def record_call(trainer, real, batches, calls: list):
     graph's warm-up step and capture, or eager steps), and its host
     wall."""
     from pharmaforge_tpu_torch.training.train_state import captured
-    kept = {id(g) for g in trainer.optimizer.train_graphs.values()}
+    kept = {id(g) for g in trainer.optimizer.train_graphs.graphs.values()}
     before, rep_before = read_launches(), read_train_replayed()
     t0 = time.perf_counter()
     out = real(batches)
@@ -2376,7 +2376,7 @@ def record_call(trainer, real, batches, calls: list):
         "steps": len(batches), "wall": wall,
         "captured": captured(trainer.device),
         "built": any(id(g) not in kept
-                     for g in trainer.optimizer.train_graphs.values()),
+                     for g in trainer.optimizer.train_graphs.graphs.values()),
         "launched": {k: after[k] - before[k] for k in after},
         "replayed": {k: rep_after[k] - rep_before[k] for k in rep_after}})
     return out
@@ -2848,7 +2848,7 @@ def frozen_lr_adam():
 def stale_batches(setup):
     """A planted fault inside the block: `setup`'s kept train graphs
     replay without the new batches copied in."""
-    kept = list(setup[1].train_graphs.values())
+    kept = list(setup[1].train_graphs.graphs.values())
     for graphs in kept:
         graphs.load = lambda *args: None
     try:
@@ -2877,7 +2877,7 @@ def trainstep_cases(dev, model, batches: list, k: int) -> tuple:
 
     def compare(name, eager, graphed, calls, want_counts=True):
         for i, (bs, lr) in enumerate(calls):
-            kept = {id(g) for g in graphed[1].train_graphs.values()}
+            kept = {id(g) for g in graphed[1].train_graphs.graphs.values()}
             reset_launches()
             e = eager_call(eager, bs, lr)
             before = read_launches()
@@ -2885,7 +2885,7 @@ def trainstep_cases(dev, model, batches: list, k: int) -> tuple:
             torch.cuda.synchronize()
             launched = {n: read_launches()[n] - before[n] for n in KERNELS}
             built = any(id(x) not in kept
-                        for x in graphed[1].train_graphs.values())
+                        for x in graphed[1].train_graphs.graphs.values())
             if want_counts:
                 want = (scaled(PER_STEP, len(bs) + 1) if built
                         else dict.fromkeys(KERNELS, 0),
@@ -2899,7 +2899,7 @@ def trainstep_cases(dev, model, batches: list, k: int) -> tuple:
             check(worst <= 1 and gen_equal,
                   f"trainstep {name} call {i}: at {worst:.3f} of the "
                   f"train-step tolerance, generators equal {gen_equal}")
-            new = [x for x in graphed[1].train_graphs.values()
+            new = [x for x in graphed[1].train_graphs.graphs.values()
                    if id(x) not in kept]
             made = (f"built: capture {new[0].capture_ms:.1f} ms, pool "
                     f"{new[0].pool_bytes} B" if new else "kept")
@@ -2961,7 +2961,7 @@ def phase_trainstep(dev, profile: bool = False, cfg=None,
     batches = train_batches(2 * k, batch_size, atoms, slots)
     lines, faults, (eager, graphed) = trainstep_cases(dev, model, batches,
                                                       k)
-    graphs = list(graphed[1].train_graphs.values())
+    graphs = list(graphed[1].train_graphs.graphs.values())
     # speed: the same K-step calls, eager and on the kept graph, in turns
     rates = {"eager": [], "captured": []}
     order = ["eager", "captured", "captured", "eager"] * turns
@@ -3028,15 +3028,15 @@ def metric_miss(want: dict, got: dict) -> float:
 
 def eval_graphs(model) -> list:
     """The validation graphs kept on `model` (`train_state.EvalGraphs`)."""
-    return list(getattr(model, "_eval_graphs", {}).values())
+    return list(model._eval_graphs.graphs.values())
 
 
 @contextlib.contextmanager
 def frozen_weights():
     """A planted fault inside the block: a validation graph built there
-    captures a copy of the model's weights as they are at capture (and
-    keeps the model's storage addresses as its key), so its replays miss
-    every train call after it."""
+    captures a copy of the model's weights as they are at capture (while
+    the model's cache still watches the model's own storage), so its
+    replays miss every train call after it."""
     from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
     from pharmaforge_tpu_torch.training import train_state
     real = train_state.EvalGraphs
@@ -3046,7 +3046,6 @@ def frozen_weights():
             frozen = PharmacophoreDiffusion(model.config, device=model.device)
             frozen.load_state_dict(model.state_dict())
             super().__init__(frozen, *args)
-            self.addrs = train_state._weight_addrs(model)
 
     train_state.EvalGraphs = FrozenWeights
     try:
@@ -3214,7 +3213,7 @@ def phase_evalstep(dev, cfg=None, batch_size: int = 32,
             run(setup, batch)
         torch.cuda.synchronize()
         rates[name].append(len(every) / (time.perf_counter() - t0))
-    made = {f"P={g.inputs['prot_x'].shape[1]}":
+    made = {f"P={g.inputs.prot_x.shape[1]}":
             {"capture_ms": round(g.capture_ms, 1), "pool_bytes": g.pool_bytes}
             for g in graphs}
     print(f"evalstep: on {card()}: B={batch_size}, buckets "

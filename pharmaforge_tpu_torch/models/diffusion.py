@@ -10,8 +10,8 @@ sampling switches back to eval mode. The JAX package runs
 the chain as one `lax.scan`; here the chain is split into its set-up
 (`chain_setup`), a step that reads and writes device tensors only
 (`chain_step`, the scan body) and its result (`chain_result`), and on the
-card the steps run as replays of CUDA graphs (`ChainGraphs`), with no
-host round trip between steps. The chain keeps the JAX package's contract:
+card the steps run as replays of CUDA graphs (`ChainGraphs`, on
+`utils/graphs.py`), with no host round trip between steps. The chain keeps the JAX package's contract:
 injected-noise keys `x_T`, `h_T`, `pos`, `feat`; COM removal at every
 step; noise added at s=0 too; both endpoint parameterisations;
 [T+1, B, F, .] trajectory frames with the initial frame first; the same
@@ -20,9 +20,8 @@ finalisation back into the pocket frame.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import gc
+import functools
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -48,7 +47,7 @@ from pharmaforge_tpu_torch.models.schedules import make_gamma_table
 from pharmaforge_tpu_torch.ops.geometry import masked_com
 from pharmaforge_tpu_torch.ops.pp_message import COMPUTE_DTYPES
 from pharmaforge_tpu_torch.parallel.mesh import all_reduce_sum
-from pharmaforge_tpu_torch.utils import trace
+from pharmaforge_tpu_torch.utils import graphs, trace
 
 
 def sigma_of_gamma(gamma: torch.Tensor) -> torch.Tensor:
@@ -263,6 +262,9 @@ class PharmacophoreDiffusion(nn.Module):
             reset_parameters_(self, generator)
         self.eval()
         self.to(resolve_device(device))
+        # the chain's and validation's CUDA graphs, which read the weights
+        self._chain_graphs = graphs.GraphCache()
+        self._eval_graphs = graphs.GraphCache()
 
     @property
     def device(self) -> torch.device:
@@ -485,14 +487,14 @@ class PharmacophoreDiffusion(nn.Module):
                                  visualize_trajectory, noise,
                                  pocket_group_size, pp_k_out)
         unroll = max(1, self.config.sample_scan_unroll)
-        graphs = None
+        runner = None
         if chain.device.type == "cuda":
-            graphs = self._graphs_for(chain, unroll)
-            chain = graphs.chain
+            runner = self._graphs_for(chain, unroll)
+            chain = runner.chain
         with trace.span("chain.run"):
-            if graphs is not None:
+            if runner is not None:
                 with trace.span("chain.replay"):
-                    graphs.run()
+                    runner.run()
             else:
                 with trace.span("chain.eager"):
                     for start in range(0, chain.n_steps, unroll):
@@ -715,23 +717,23 @@ class PharmacophoreDiffusion(nn.Module):
 
     def _graphs_for(self, chain: "ReverseChain",
                     unroll: int) -> "ChainGraphs":
-        """The captured graphs that run `chain`: the last ones, with
-        `chain` copied into their tensors, where its signature matches
-        theirs; else new ones, captured on a copy of `chain` (the old ones
-        are freed first). Span "chain.graphs" (`utils/trace.py`)."""
+        """The captured graphs that run `chain`, with `chain` copied into
+        their tensors: the kept ones where its signature (shapes, flags,
+        U) matches theirs and the parameters' storage has not moved; else
+        new ones, captured on a copy of `chain` (the old ones are freed
+        first: the chain keeps one signature). Span "chain.graphs"
+        (`utils/trace.py`)."""
         with trace.span("chain.graphs"):
-            key = (_spec(chain.inputs), _spec(chain.state),
-                   chain.pocket_group_size, chain.n_steps, unroll,
-                   tuple(t.data_ptr() for t in
-                         (*self.parameters(), *self.buffers())))
-            graphs = getattr(self, "_chain_graphs", None)
-            if graphs is not None and graphs.key == key:
-                graphs.load(chain)
-                return graphs
-            self._chain_graphs = None
-            graphs = ChainGraphs(self.chain_step, chain, unroll, key)
-            self._chain_graphs = graphs
-            return graphs
+            key = (graphs.spec(chain), unroll)
+            cache = self._chain_graphs
+            if key not in cache.graphs:
+                cache.clear()
+            runner = cache.get(
+                key, (*self.parameters(), *self.buffers()),
+                lambda pool: ChainGraphs(self.chain_step, chain, unroll,
+                                         pool))
+            runner.load(chain)
+            return runner
 
 
 @dataclasses.dataclass
@@ -755,150 +757,50 @@ class ReverseChain:
         return self.state["x"].device
 
 
-def _tensors(tree):
-    """The tensors of a nest of dicts, tuples and lists, in order."""
-    if torch.is_tensor(tree):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensors(v)
-    elif isinstance(tree, (tuple, list)):
-        for v in tree:
-            yield from _tensors(v)
-
-
-def _spec(tree):
-    """The structure of a nest with every tensor as (shape, dtype,
-    device): what a captured graph is specialised to."""
-    if torch.is_tensor(tree):
-        return tuple(tree.shape), tree.dtype, tree.device
-    if isinstance(tree, dict):
-        return tuple((k, _spec(v)) for k, v in tree.items())
-    if isinstance(tree, (tuple, list)):
-        return type(tree).__name__, tuple(_spec(v) for v in tree)
-    return tree
-
-
-def _clone(tree):
-    """A copy of a nest with every tensor cloned."""
-    if torch.is_tensor(tree):
-        return tree.clone()
-    if isinstance(tree, dict):
-        return {k: _clone(v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_clone(v) for v in tree))
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_clone(v) for v in tree)
-    return tree
-
-
-# the registry's counters (`utils/trace.py`) that a graph's capture
-# records, by kernel: each replay of the graph counts them again as
-# "<kind>.replayed.<kernel>"
-KERNEL_COUNTERS = {"knn_select": "knn_select.launches",
-                   "pp_message": "pp_message.launches",
-                   "pp_message_bwd": "pp_message.bwd_launches",
-                   "corrections": "conv.corrections",
-                   "gvp_chain": "gvp_chain.launches"}
-
-
-@contextlib.contextmanager
-def collector_paused():
-    """Dead reference cycles collected now, and Python's cyclic garbage
-    collector off inside the block: a collection during a CUDA graph
-    capture could destroy an old graph kept in such a cycle, which a
-    capturing stream does not allow (the capture is invalidated)."""
-    gc.collect()
-    enabled = gc.isenabled()
-    gc.disable()
-    try:
-        yield
-    finally:
-        if enabled:
-            gc.enable()
-
-
-def kernel_counts() -> Dict[str, int]:
-    """The kernel counters now, by kernel (`KERNEL_COUNTERS`)."""
-    now = trace.counters()
-    return {k: now[name] for k, name in KERNEL_COUNTERS.items()}
-
-
-def count_replays(kind: str, captured: Dict[str, int], replays: int) -> None:
-    """Count `replays` replays of a `kind` graph ("chain", "train" or
-    "eval") whose capture counted `captured` (kernel -> launches):
-    "<kind>.replays" and "<kind>.replayed.<kernel>"."""
-    trace.count(f"{kind}.replays", replays)
-    for k, n in captured.items():
-        trace.count(f"{kind}.replayed.{k}", n * replays)
-
-
 class ChainGraphs:
-    """A reverse chain as CUDA graphs: `unroll` steps of `step` in one
-    graph, replayed T // unroll times, and the T mod unroll steps left in
-    a second graph that shares the first one's memory pool.
+    """A reverse chain as CUDA graphs (`utils/graphs.py`): `unroll` steps
+    of `step` in one graph, replayed T // unroll times, and the T mod
+    unroll steps left in a second graph, both in memory pool `pool`.
 
-    The chain is copied first, so the graphs read and write tensors of
-    their own (`chain`); `load` copies a later chain of the same signature
-    into them. Before capture one step runs eagerly on a side stream, so
-    first-use work (kernel builds, launch attributes, cuBLAS workspaces)
-    is done outside the graphs; the chain is then reloaded, so that step
-    leaves no trace. `capture_ms` is the host time of that step and the
-    captures, `pool_bytes` the device memory the captures reserved, and
-    `graphs` holds (graph, its replays a chain, the launches its capture
-    counted, by kernel). Building one counts "chain.captures" once its
-    captures returned, inside the span "chain.capture" (`utils/trace.py`)."""
+    The graphs read and write a staged copy of the chain (`chain`), into
+    which `load` copies a later chain of the same signature; reloading it
+    undoes the warm-up step. `capture_ms` is the host time of that step
+    and the captures, `pool_bytes` the device memory the captures
+    reserved, and `graphs` holds (graph, its replays a chain, the launches
+    its capture counted, by kernel). Building one counts "chain.captures"
+    once its captures returned, inside the span "chain.capture"."""
 
-    def __init__(self, step, chain: ReverseChain, unroll: int, key):
+    def __init__(self, step, chain: ReverseChain, unroll: int, pool):
         with trace.span("chain.capture"):
-            self._capture(step, chain, unroll, key)
+            self._capture(step, chain, unroll, pool)
             trace.count("chain.captures")
 
-    def _capture(self, step, chain: ReverseChain, unroll: int, key) -> None:
+    def _capture(self, step, chain: ReverseChain, unroll: int, pool) -> None:
         dev = chain.device
-        self.key = key
-        self.chain = dataclasses.replace(chain,
-                                         inputs=_clone(chain.inputs),
-                                         state=_clone(chain.state))
+        self.step = step
+        self.chain = graphs.stage(chain)
         unroll = min(unroll, chain.n_steps)
-        self.graphs = []
+        full, tail = divmod(chain.n_steps, unroll)
         t0 = time.perf_counter()
-        with torch.cuda.device(dev):
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                step(self.chain)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            self.load(chain)
-            with collector_paused():
-                torch.cuda.synchronize(dev)
-                torch.cuda.empty_cache()
-                reserved = torch.cuda.memory_reserved(dev)
-                full, tail = divmod(chain.n_steps, unroll)
-                pool = None
-                for steps, replays in ((unroll, full), (tail, 1)):
-                    if not steps or not replays:
-                        continue
-                    graph = torch.cuda.CUDAGraph()
-                    before = kernel_counts()
-                    with torch.cuda.graph(graph, pool=pool):
-                        for _ in range(steps):
-                            step(self.chain)
-                    pool = graph.pool()
-                    after = kernel_counts()
-                    self.graphs.append(
-                        (graph, replays, {k: after[k] - before[k]
-                                          for k in after}))
-                torch.cuda.synchronize(dev)
-                self.pool_bytes = (torch.cuda.memory_reserved(dev)
-                                   - reserved)
+        graphs.warm_up(dev, lambda: step(self.chain))
+        self.load(chain)
+        self.graphs, self.pool_bytes = [], 0
+        for steps, replays in ((unroll, full), (tail, 1)):
+            if steps and replays:
+                graph, counts, reserved = graphs.capture(
+                    dev, functools.partial(self._steps, steps), pool)
+                self.graphs.append((graph, replays, counts))
+                self.pool_bytes += reserved
         self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def _steps(self, n: int) -> None:
+        """`n` steps of the chain: what a graph holds."""
+        for _ in range(n):
+            self.step(self.chain)
 
     def load(self, chain: ReverseChain) -> None:
         """Copy `chain`'s tensors (same signature) into the graphs' own."""
-        for dst, src in zip(_tensors((self.chain.inputs, self.chain.state)),
-                            _tensors((chain.inputs, chain.state))):
-            dst.copy_(src)
+        graphs.load_into(self.chain, chain)
 
     def run(self) -> None:
         """The chain's T steps, from the loaded state: every graph's
@@ -907,4 +809,4 @@ class ChainGraphs:
         for graph, replays, counts in self.graphs:
             for _ in range(replays):
                 graph.replay()
-            count_replays("chain", counts, replays)
+            graphs.count_replays("chain", counts, replays)

@@ -16,6 +16,8 @@ from typing import Iterable, List, Optional
 
 import torch
 
+from pharmaforge_tpu_torch.utils.graphs import GraphCache
+
 
 class Adam:
     """The JAX package's `optax.chain(clip(c), add_decayed_weights(wd),
@@ -66,10 +68,9 @@ class Adam:
         self._acc: List[torch.Tensor] = (
             [torch.zeros_like(p) for p in self.params]
             if self.accumulate > 1 else [])
-        # the captured train steps of these parameters, by signature, and
-        # the memory pool they share (training/train_state.py)
-        self.train_graphs: dict = {}
-        self.graph_pool = None
+        # the captured train steps of these parameters, by signature
+        # (training/train_state.py)
+        self.train_graphs = GraphCache()
 
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)

@@ -13,10 +13,10 @@ On the card a call is one replay of a CUDA graph of its K steps
 (`TrainGraphs`: forward, the kernels K1 and K2, the backward with K3 and
 the Adam update all captured), kept per signature on the optimizer, and a
 validation batch one replay of a graph of its forward (`EvalGraphs`, K1
-and K2 captured), kept per signature on the model. On the CPU, and under
-a gloo process group (whose all-reduce a graph cannot hold), the same
-work runs eagerly; `captured` decides, and `step_mode` says which in
-words.
+and K2 captured), kept per signature on the model; what the two runners
+share with the chain's is `utils/graphs.py`. On the CPU, and under a
+gloo process group (whose all-reduce a graph cannot hold), the same work
+runs eagerly; `captured` decides, and `step_mode` says which in words.
 
 Spans (`utils/trace.py`), inside the trainer's "trainer.call": a call's
 "train.graphs" (the signature lookup, with "train.capture" inside where a
@@ -36,7 +36,6 @@ global batch's update to identical parameters.
 
 from __future__ import annotations
 
-import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -49,13 +48,10 @@ from pharmaforge_tpu_torch.data.batch import (
     stack_batches,
     unstack_batch,
 )
-from pharmaforge_tpu_torch.models import diffusion
 from pharmaforge_tpu_torch.models.diffusion import PharmacophoreDiffusion
 from pharmaforge_tpu_torch.parallel.mesh import all_reduce_grads
 from pharmaforge_tpu_torch.training.optim import Adam
-from pharmaforge_tpu_torch.utils import trace
-
-_FIELDS = [f.name for f in dataclasses.fields(PharmComplexBatch)]
+from pharmaforge_tpu_torch.utils import graphs, trace
 
 
 def captured(device) -> bool:
@@ -112,8 +108,11 @@ def multi_train_step(model: PharmacophoreDiffusion, optimizer: Adam,
     before each update.
 
     On the card the K steps replay a CUDA graph (`TrainGraphs`), captured
-    at the first call of each signature and kept on `optimizer`; a
-    capture that fails raises. Elsewhere (`captured`) they run eagerly."""
+    at the first call of each signature (shapes, K, the accumulation
+    phase, `rows`, the model and the generator) and kept on `optimizer`
+    with every other signature's until a weight or an optimizer tensor
+    moves to new storage; a capture that fails raises. Elsewhere
+    (`captured`) they run eagerly."""
     k = batches.pharm_x.shape[0]
     if noise is not None and len(noise) != k:
         raise ValueError(f"{len(noise)} noise dicts for {k} steps")
@@ -122,11 +121,16 @@ def multi_train_step(model: PharmacophoreDiffusion, optimizer: Adam,
         if noise is not None:
             raise ValueError("injected draws: the captured steps draw from "
                              "the generator (eager_train_steps takes them)")
-        graphs = _graphs_for(model, optimizer, batches, generator, rows)
+        with trace.span("train.graphs"):
+            runner = optimizer.train_graphs.get(
+                (graphs.spec(batches), optimizer.mini_step, rows, id(model),
+                 id(generator)), _state_tensors(model, optimizer),
+                lambda pool: TrainGraphs(model, optimizer, generator,
+                                         batches, rows, pool))
         with trace.span("train.load"):
-            graphs.load(batches)
+            runner.load(batches)
         with trace.span("train.replay"):
-            names, out = graphs.names, graphs.run()
+            names, out = runner.names, runner.run()
     else:
         with trace.span("train.eager"):
             names, out = eager_train_steps(model, optimizer, batches,
@@ -181,13 +185,19 @@ def eval_metrics(model: PharmacophoreDiffusion, batch: PharmComplexBatch,
     """`eval_step`'s metrics left on the device: (names, values [M]).
 
     On the card the batch replays a CUDA graph (`EvalGraphs`), captured at
-    the first call of its signature and kept on the model; the values are
-    the graph's output, which its next replay overwrites. A capture that
-    fails raises. Elsewhere (`captured`) the forward runs eagerly."""
+    the first call of its signature (every field's shape and dtype,
+    `rows`, the model and the generator) and kept on the model, apart from
+    the train graphs, with every other signature's until a weight or
+    buffer moves to new storage; the values are the graph's output, which
+    its next replay overwrites. A capture that fails raises. Elsewhere
+    (`captured`) the forward runs eagerly."""
     if captured(model.device):
-        graphs = _eval_graphs_for(model, batch, generator, rows)
-        graphs.load(batch)
-        return graphs.names, graphs.run()
+        runner = model._eval_graphs.get(
+            (graphs.spec(batch), rows, id(model), id(generator)),
+            (*model.parameters(), *model.buffers()),
+            lambda pool: EvalGraphs(model, generator, batch, rows, pool))
+        runner.load(batch)
+        return runner.names, runner.run()
     return eager_eval(model, batch, generator, rows)
 
 
@@ -218,66 +228,6 @@ def _state_tensors(model: PharmacophoreDiffusion,
             *optimizer._acc, *lr]
 
 
-def _shapes(batch: PharmComplexBatch) -> tuple:
-    """Every field's name, shape and dtype: a graph's input signature."""
-    return tuple((name, np.shape(getattr(batch, name)),
-                  np.asarray(getattr(batch, name)).dtype.str)
-                 for name in _FIELDS)
-
-
-def _warm_up(dev, fn):
-    """`fn()` on a new side stream that starts after the current stream's
-    work, which then waits for it: first-use work outside any graph."""
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        out = fn()
-    torch.cuda.current_stream(dev).wait_stream(side)
-    return out
-
-
-def _capture(dev, generator: torch.Generator, pool, body) -> tuple:
-    """`body()` captured into a new CUDA graph in memory pool `pool`, with
-    `generator` registered and Python's cyclic collector paused
-    (`diffusion.collector_paused`). Returns (the graph, the launches the
-    capture counted, by kernel, the device memory it reserved)."""
-    with diffusion.collector_paused():
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(generator)
-        before = diffusion.kernel_counts()
-        with torch.cuda.graph(graph, pool=pool):
-            body()
-        after = diffusion.kernel_counts()
-        torch.cuda.synchronize(dev)
-        return (graph, {k: after[k] - before[k] for k in after},
-                torch.cuda.memory_reserved(dev) - reserved)
-
-
-def _graphs_for(model: PharmacophoreDiffusion, optimizer: Adam,
-                batches: PharmComplexBatch, generator: torch.Generator,
-                rows) -> "TrainGraphs":
-    """The kept graph of this call's signature (shapes, K, the
-    accumulation phase, `rows`, the model and the generator), or a new one.
-    When the weights' or the optimizer's tensors have moved since the kept
-    graphs were captured, those are freed first."""
-    with trace.span("train.graphs"):
-        addrs = tuple(t.data_ptr() for t in _state_tensors(model, optimizer))
-        kept = optimizer.train_graphs
-        if any(g.addrs != addrs for g in kept.values()):
-            kept.clear()
-            optimizer.graph_pool = None
-        key = (_shapes(batches), optimizer.mini_step, rows, id(model),
-               id(generator))
-        graphs = kept.get(key)
-        if graphs is None:
-            graphs = TrainGraphs(model, optimizer, generator, batches, rows)
-            kept[key] = graphs
-        return graphs
-
-
 class TrainGraphs:
     """K train steps as one CUDA graph: the counterpart of the JAX
     package's scanned multi-step call.
@@ -293,60 +243,51 @@ class TrainGraphs:
     phase `mini_step`; the kernel counters, re-counted as captured
     launches x replays under "train.replayed.<kernel>").
 
-    Before the capture one step runs eagerly on a side stream, so the
-    first-use work (kernel builds, launch attributes, K3's scratch query,
-    cuBLAS workspaces) happens outside the graph; the weights, Adam's
-    state, the accumulation buffers and phase and the generator are then
-    restored, so that step leaves no trace. Every graph of one optimizer
-    shares one memory pool. `addrs` are the storage addresses of the
-    tensors the graph updates in place, `capture_ms` the host time of the
-    warm-up and the capture, `pool_bytes` the device memory the capture
-    reserved. Building one counts "train.captures" once its capture
-    returned, inside the span "train.capture"."""
+    The warm-up step (`utils/graphs.py`) is undone: the weights, Adam's
+    state, the accumulation buffers and phase and the generator restored.
+    Every graph of one optimizer shares its cache's memory pool (`pool`).
+    `capture_ms` is the host time of the warm-up and the capture,
+    `pool_bytes` the device memory the capture reserved. Building one
+    counts "train.captures" once its capture returned, inside the span
+    "train.capture"."""
 
     def __init__(self, model: PharmacophoreDiffusion, optimizer: Adam,
                  generator: torch.Generator, batches: PharmComplexBatch,
-                 rows: Optional[Tuple[int, int]]):
+                 rows: Optional[Tuple[int, int]], pool):
         with trace.span("train.capture"):
-            self._capture(model, optimizer, generator, batches, rows)
+            self._capture(model, optimizer, generator, batches, rows, pool)
             trace.count("train.captures")
 
-    def _capture(self, model, optimizer, generator, batches, rows) -> None:
+    def _capture(self, model, optimizer, generator, batches, rows,
+                 pool) -> None:
         dev = model.device
         self.model, self.optimizer, self.generator = model, optimizer, \
             generator
         self.rows = rows
         self.k = batches.pharm_x.shape[0]
         self.phase = optimizer.mini_step
-        self.inputs = {name: torch.from_numpy(np.array(getattr(
-            batches, name))).to(dev) for name in _FIELDS}
+        self.inputs = graphs.stage(batches, dev)
         state = _state_tensors(model, optimizer)
-        self.addrs = tuple(t.data_ptr() for t in state)
         t0 = time.perf_counter()
-        with torch.cuda.device(dev):
-            saved = ([t.detach().clone() for t in state],
-                     generator.get_state())
-            self.names = list(_warm_up(dev, lambda: self._step(0)))
-            with torch.no_grad():
-                for t, copy in zip(state, saved[0]):
-                    t.copy_(copy)
-            generator.set_state(saved[1])
-            optimizer.mini_step = self.phase
-            optimizer.zero_grad()
-            del saved
-            self.out = torch.zeros((self.k, len(self.names)), device=dev)
-            if optimizer.graph_pool is None:
-                optimizer.graph_pool = torch.cuda.graph_pool_handle()
-            self.graph, self.counts, self.pool_bytes = _capture(
-                dev, generator, optimizer.graph_pool, self._body)
-            optimizer.mini_step = self.phase
+        saved = ([t.detach().clone() for t in state], generator.get_state())
+        self.names = list(graphs.warm_up(dev, lambda: self._step(0)))
+        with torch.no_grad():
+            for t, copy in zip(state, saved[0]):
+                t.copy_(copy)
+        generator.set_state(saved[1])
+        optimizer.mini_step = self.phase
+        optimizer.zero_grad()
+        del saved
+        self.out = torch.zeros((self.k, len(self.names)), device=dev)
+        self.graph, self.counts, self.pool_bytes = graphs.capture(
+            dev, self._body, pool, generator)
+        optimizer.mini_step = self.phase
         self.capture_ms = (time.perf_counter() - t0) * 1e3
 
     def _step(self, j: int) -> Dict[str, torch.Tensor]:
         """Step j of the call, on the graph's input tensors."""
-        batch = PharmComplexBatch(**{name: self.inputs[name][j]
-                                     for name in _FIELDS})
-        return _one_step(self.model, self.optimizer, batch, self.generator,
+        return _one_step(self.model, self.optimizer,
+                         unstack_batch(self.inputs, j), self.generator,
                          self.rows, None)
 
     def _body(self) -> None:
@@ -358,9 +299,7 @@ class TrainGraphs:
     def load(self, batches: PharmComplexBatch) -> None:
         """Copy a call's batches of this signature into the graph's input
         tensors."""
-        for name in _FIELDS:
-            self.inputs[name].copy_(torch.from_numpy(
-                np.asarray(getattr(batches, name))))
+        graphs.load_into(self.inputs, batches)
 
     def run(self) -> torch.Tensor:
         """One replay: the call's K steps, enqueued on the current stream;
@@ -371,37 +310,11 @@ class TrainGraphs:
                                f"at phase {opt.mini_step}")
         self.graph.replay()
         opt.mini_step = (self.phase + self.k) % opt.accumulate
-        diffusion.count_replays("train", self.counts, 1)
+        graphs.count_replays("train", self.counts, 1)
         return self.out
 
 
 # ------------------------------------------------- the validation runner
-
-def _weight_addrs(model: PharmacophoreDiffusion) -> tuple:
-    """The storage addresses of every weight and buffer of `model`."""
-    return tuple(t.data_ptr() for t in (*model.parameters(),
-                                        *model.buffers()))
-
-
-def _eval_graphs_for(model: PharmacophoreDiffusion, batch: PharmComplexBatch,
-                     generator: torch.Generator, rows) -> "EvalGraphs":
-    """The kept validation graph of this batch's signature (every field's
-    shape and dtype, `rows`, the model and the generator), or a new one.
-    The graphs live on the model (`_eval_graphs`); when a weight or buffer
-    has moved to new storage since they were captured, they are freed
-    first."""
-    addrs = _weight_addrs(model)
-    kept = getattr(model, "_eval_graphs", None)
-    if kept is None or any(g.addrs != addrs for g in kept.values()):
-        kept = model._eval_graphs = {}
-    key = (_shapes(batch), rows, id(model), id(generator))
-    graphs = kept.get(key)
-    if graphs is None:
-        pool = next(iter(kept.values())).pool if kept else None
-        graphs = EvalGraphs(model, generator, batch, rows, pool)
-        kept[key] = graphs
-    return graphs
-
 
 class EvalGraphs:
     """One validation batch's forward as a CUDA graph: the counterpart of
@@ -419,19 +332,16 @@ class EvalGraphs:
     counters, re-counted as captured launches x replays under
     "eval.replayed.<kernel>").
 
-    Before the capture the forward runs once eagerly on a side stream, so
-    first-use work (kernel builds, launch attributes, cuBLAS workspaces)
-    happens outside the graph; the generator is then restored, so that
-    run leaves no trace. The graphs of one model share one memory pool
-    (`pool`), apart from the train graphs'. `addrs` are the storage
-    addresses of the weights and buffers the graph reads, `capture_ms`
-    the host time of the warm-up and the capture, `pool_bytes` the device
-    memory the capture reserved. Building one counts "eval.captures" once
-    its capture returned, inside the span "eval.capture"."""
+    The warm-up forward (`utils/graphs.py`) is undone: the generator
+    restored. The graphs of one model share its cache's memory pool
+    (`pool`). `capture_ms` is the host time of the warm-up and the capture,
+    `pool_bytes` the device memory the capture reserved. Building one
+    counts "eval.captures" once its capture returned, inside the span
+    "eval.capture"."""
 
     def __init__(self, model: PharmacophoreDiffusion,
                  generator: torch.Generator, batch: PharmComplexBatch,
-                 rows: Optional[Tuple[int, int]], pool=None):
+                 rows: Optional[Tuple[int, int]], pool):
         with trace.span("eval.capture"):
             self._capture(model, generator, batch, rows, pool)
             trace.count("eval.captures")
@@ -439,41 +349,32 @@ class EvalGraphs:
     def _capture(self, model, generator, batch, rows, pool) -> None:
         dev = model.device
         self.model, self.generator, self.rows = model, generator, rows
-        self.inputs = {name: torch.from_numpy(np.array(getattr(
-            batch, name))).to(dev) for name in _FIELDS}
-        self.addrs = _weight_addrs(model)
+        self.inputs = graphs.stage(batch, dev)
         t0 = time.perf_counter()
-        with torch.cuda.device(dev):
-            saved = generator.get_state()
-            self.names, _ = _warm_up(dev, lambda: eager_eval(
-                model, self._batch(), generator, rows))
-            generator.set_state(saved)
-            self.out = torch.zeros(len(self.names), device=dev)
-            self.pool = pool or torch.cuda.graph_pool_handle()
-            self.graph, self.counts, self.pool_bytes = _capture(
-                dev, generator, self.pool, self._body)
+        saved = generator.get_state()
+        self.names, _ = graphs.warm_up(dev, lambda: eager_eval(
+            model, self.inputs, generator, rows))
+        generator.set_state(saved)
+        self.out = torch.zeros(len(self.names), device=dev)
+        self.graph, self.counts, self.pool_bytes = graphs.capture(
+            dev, self._body, pool, generator)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
-
-    def _batch(self) -> PharmComplexBatch:
-        return PharmComplexBatch(**self.inputs)
 
     def _body(self) -> None:
         """The forward, writing its metrics into `out`: what the graph
         holds."""
-        self.out.copy_(eager_eval(self.model, self._batch(), self.generator,
+        self.out.copy_(eager_eval(self.model, self.inputs, self.generator,
                                   self.rows)[1])
 
     def load(self, batch: PharmComplexBatch) -> None:
         """Copy a batch of this signature into the graph's input
         tensors."""
-        for name in _FIELDS:
-            self.inputs[name].copy_(torch.from_numpy(
-                np.asarray(getattr(batch, name))))
+        graphs.load_into(self.inputs, batch)
 
     def run(self) -> torch.Tensor:
         """One replay, enqueued on the current stream; returns `out`,
         which this graph's next replay overwrites."""
         self.graph.replay()
         self.model.train(False)
-        diffusion.count_replays("eval", self.counts, 1)
+        graphs.count_replays("eval", self.counts, 1)
         return self.out

@@ -31,6 +31,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from pharmaforge_tpu.ops.neighbors import (
     knn_mask,
     radius_mask,

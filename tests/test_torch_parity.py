@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from pharmaforge_tpu.models.gvp import GVP
 
 

@@ -12,6 +12,7 @@ from pathlib import Path
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from pharmaforge_tpu_torch import bench
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -4,6 +4,7 @@ flags change, and only then. CPU only: nothing is compiled."""
 
 import pytest
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from pharmaforge_tpu_torch.ops import _build
 
 

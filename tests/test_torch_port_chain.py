@@ -21,6 +21,7 @@ import pytest
 import torch
 import yaml
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from pharmaforge_tpu.data.batch import PharmComplexBatch as JaxBatch
 from pharmaforge_tpu.models.diffusion import (
     DiffusionConfig as JaxConfig,

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import yaml
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from pharmaforge_tpu_torch.cli import generate as tgen
 from pharmaforge_tpu_torch.cli import test as ttest
 from pharmaforge_tpu_torch.cli import train as ttrain

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import chip_smoke
 from pharmaforge_tpu_torch.ops import knn_select as ks
 from pharmaforge_tpu_torch.utils import trace
@@ -452,12 +453,13 @@ def test_kept_graphs_serve_a_later_chain(dev):
     model.sample_given_receptor(batch, **kw)
     later = dict(kw, noise=chip_smoke.chain_noise(batch.batch_size, 12,
                                                   seed=9))
-    graphs = model._chain_graphs
+    kept = list(model._chain_graphs.graphs.values())
     chip_smoke.reset_launches()
     got = model.sample_given_receptor(batch, **later)
     torch.cuda.synchronize()
     counts = trace.counters()
-    assert model._chain_graphs is graphs and counts["knn_select.launches"] == 0
+    assert list(model._chain_graphs.graphs.values()) == kept
+    assert counts["knn_select.launches"] == 0
     assert counts["chain.captures"] == 0
     assert chip_smoke.read_replayed()["knn_select"] == 12
     want = chip_smoke.eager_chain(model, batch, **later)
@@ -662,4 +664,4 @@ def test_a_failed_capture_raises(dev):
             model.sample_given_receptor(batch, **kw)
     finally:
         PharmacophoreDiffusion.chain_step = real
-    assert getattr(model, "_chain_graphs", None) is None
+    assert not model._chain_graphs.graphs

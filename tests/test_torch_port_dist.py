@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from pharmaforge_tpu_torch.cli import test as ttest
 from pharmaforge_tpu_torch.cli import train as ttrain
 from pharmaforge_tpu_torch.config.load_from_config import (
@@ -59,17 +60,6 @@ from pharmaforge_tpu_torch.training.trainer import Trainer
 # 5-20 s a spawn takes here, so that a loaded test machine does not trip it
 LIMIT_S = 300.0
 CHAIN_TOL = 2e-3
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Tiny models gain nothing from threads, and the ranks (each given
-    1/n of this process's threads) share a loaded test machine with the
-    other test workers."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def model_kw(**kw):

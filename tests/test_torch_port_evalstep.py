@@ -8,7 +8,7 @@ validation, on the CPU.
   JAX; test_torch_port_train.py holds `train=True`);
 * the runner (`EvalGraphs`: warm-up, capture, input copies, kept graphs,
   freed when a weight moves) with the stand-in for CUDA graphs of
-  test_torch_port_multistep.py, validations of two batch shapes between
+  tests/recorded_graphs.py, validations of two batch shapes between
   recorded train calls: bit-equal to eager `eval_step`, one graph per
   signature, every replay counted;
 * `Trainer.validate`'s one-copy collection bit-equal to the per-batch
@@ -24,6 +24,7 @@ import jax
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import chip_smoke
 from pharmaforge_tpu.models.diffusion import (
     DiffusionConfig as JaxConfig,
@@ -45,7 +46,6 @@ from pharmaforge_tpu_torch.models.diffusion import (
     DiffusionConfig,
     PharmacophoreDiffusion,
 )
-from pharmaforge_tpu_torch.training import train_state
 from pharmaforge_tpu_torch.training.train_state import (
     eval_step,
     multi_train_step,
@@ -53,14 +53,12 @@ from pharmaforge_tpu_torch.training.train_state import (
 from pharmaforge_tpu_torch.training.trainer import Trainer
 from pharmaforge_tpu_torch.utils import trace
 from tests.conftest import make_complex_batch
+from tests.recorded_graphs import RecordedGraph, recorded_graphs
 from tests.test_torch_port_multistep import (
-    RecordedGraph,
     assert_same_state,
     clone_setup,
     jax_batches,
-    one_thread,  # noqa: F401  (a fixture)
     port_model,
-    recorded_capture,
     schedule_config,
     small_kw,
 )
@@ -102,22 +100,6 @@ def test_eval_metrics_match_jax(rng, endpoint):
 
 # ----------------------------------------- the runner, with recorded graphs
 
-def recorded_eval(monkeypatch):
-    """`recorded_capture`, and validation captures recorded too: a
-    capture runs the forward's host code and undoes its draws (a capture
-    enqueues nothing); a replay reruns it."""
-    recorded_capture(monkeypatch)
-    real_body = train_state.EvalGraphs._body
-
-    def body(self):
-        RecordedGraph.capturing[-1].body = lambda: real_body(self)
-        rng = self.generator.get_state()
-        real_body(self)
-        self.generator.set_state(rng)
-
-    monkeypatch.setattr(train_state.EvalGraphs, "_body", body)
-
-
 def val_batch(seed, p):
     """A port batch of 3 pockets in `p` prot slots (pp edges at 3.5 A)."""
     jb = make_complex_batch(np.random.default_rng(seed), b=3, p=p,
@@ -134,7 +116,7 @@ def run_ops(setup, ops):
                              2e-3) for op, arg in ops]
 
 
-def test_runner_replays_match_eager_validation(one_thread, monkeypatch):
+def test_runner_replays_match_eager_validation(monkeypatch):
     """Validations of two batch shapes between train calls: the recorded
     runner bit-equal to eager `eval_step` (metrics, weights, generator),
     one graph per signature kept on the model and reused, every replay
@@ -147,7 +129,7 @@ def test_runner_replays_match_eager_validation(one_thread, monkeypatch):
            ("val", b), ("train", train[2:]), ("val", a[0])]
     eager = clone_setup(base)
     want = run_ops(eager, ops + [("val", b)])
-    recorded_eval(monkeypatch)
+    recorded_graphs(monkeypatch)
     RecordedGraph.made = 0
     trace.reset()
     runner = clone_setup(base)
@@ -158,8 +140,8 @@ def test_runner_replays_match_eager_validation(one_thread, monkeypatch):
             assert np.array_equal(g[key], w[key]), (i, op, key)
     n_val = sum(op == "val" for op, _ in ops)
     assert trace.counters()["eval.replays"] == n_val
-    kept = runner[0]._eval_graphs
-    assert sorted(g.inputs["prot_x"].shape[1] for g in kept.values()) == \
+    kept = runner[0]._eval_graphs.graphs
+    assert sorted(g.inputs.prot_x.shape[1] for g in kept.values()) == \
         [24, 40]
     # two validation graphs and the train graphs of 2 and 1 steps
     assert RecordedGraph.made == 4
@@ -170,11 +152,11 @@ def test_runner_replays_match_eager_validation(one_thread, monkeypatch):
     param = next(runner[0].parameters())
     param.data = param.data.clone()
     assert eval_step(runner[0], b, runner[2]) == want[-1]
-    assert len(runner[0]._eval_graphs) == 1 and RecordedGraph.made == 5
+    assert len(kept) == 1 and RecordedGraph.made == 5
     assert_same_state(eager, runner)
 
 
-def test_frozen_weights_fault_misses(one_thread, monkeypatch):
+def test_frozen_weights_fault_misses(monkeypatch):
     """A validation graph over a copy of the weights (a planted fault)
     agrees with eager until a train call moves the weights, then leaves
     the eager metrics by more than 10 x the tolerance."""
@@ -184,7 +166,7 @@ def test_frozen_weights_fault_misses(one_thread, monkeypatch):
     ops = [("val", val), ("train", train), ("val", val)]
     eager = clone_setup(base)
     want = run_ops(eager, ops)
-    recorded_eval(monkeypatch)
+    recorded_graphs(monkeypatch)
     runner = clone_setup(base)
     with chip_smoke.frozen_weights():
         got = run_ops(runner, ops)
@@ -217,7 +199,7 @@ def per_batch_validate(trainer, datamodule):
 
 
 @pytest.mark.parametrize("limit", [0.6, 3])
-def test_validate_one_copy_matches_per_batch(one_thread, tmp_path, limit):
+def test_validate_one_copy_matches_per_batch(tmp_path, limit):
     data = make_synthetic_processed_dataset(
         str(tmp_path / "data"), n_splits=3, samples_per_split=11,
         n_prot_range=(24, 90), seed=4, site_rule="deterministic")

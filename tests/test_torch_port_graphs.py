@@ -14,12 +14,12 @@ its runner (`models/diffusion.py::ChainGraphs`), on the CPU.
   by more than 10 x the chain tolerance;
 * the runner's replay logic (warm-up, capture of U steps and of the
   T mod U left, replays, the kept graphs reused with a later chain's
-  inputs) with a stand-in for CUDA graphs that records the steps of a
-  capture and replays them: bit-equal to the eager chain. The real graphs
-  run in the card tests (`test_torch_port_cuda.py`).
+  inputs, dropped for another signature or a weight in new storage) with
+  the stand-in for CUDA graphs of `tests/recorded_graphs.py`, which
+  records a capture's body and replays it: bit-equal to the eager chain.
+  The real graphs run in the card tests (`test_torch_port_cuda.py`).
 """
 
-import contextlib
 import dataclasses
 
 import numpy as np
@@ -27,6 +27,7 @@ import jax
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import chip_smoke
 from pharmaforge_tpu.data.batch import PharmComplexBatch as JaxBatch
 from pharmaforge_tpu.models.diffusion import (
@@ -35,12 +36,12 @@ from pharmaforge_tpu.models.diffusion import (
 )
 from pharmaforge_tpu_torch.data.batch import PharmComplexBatch, tile_pocket
 from pharmaforge_tpu_torch.interop import params_from_jax
-from pharmaforge_tpu_torch.models import diffusion
 from pharmaforge_tpu_torch.utils import trace
 from pharmaforge_tpu_torch.models.diffusion import (
     DiffusionConfig,
     PharmacophoreDiffusion,
 )
+from tests.recorded_graphs import recorded_graphs
 
 TOL = 2e-3          # test_torch_port_chain.py's chain tolerance
 TABLES_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -200,67 +201,6 @@ def test_frozen_step_index_fails_the_comparison():
                        f"{units:.3f} x the tolerance"
 
 
-class RecordingGraph:
-    """Stands in for `torch.cuda.CUDAGraph`: a capture records the steps
-    made inside it (their Python code runs on a copy, as a capture runs
-    the host code without the kernels' effects); a replay reruns them."""
-
-    capturing = []
-
-    def __init__(self):
-        self.steps = []
-
-    def pool(self):
-        return "pool"
-
-    def replay(self):
-        for step, chain in self.steps:
-            step(chain)
-
-
-def recording_capture(monkeypatch):
-    """torch.cuda replaced by CPU stand-ins for the runner's calls."""
-    class Stream:
-        def wait_stream(self, other):
-            pass
-
-    @contextlib.contextmanager
-    def graph(g, pool=None):
-        RecordingGraph.capturing.append(g)
-        try:
-            yield
-        finally:
-            RecordingGraph.capturing.pop()
-
-    cuda = torch.cuda
-    for name, value in (
-            ("device", lambda d=None: contextlib.nullcontext()),
-            ("Stream", lambda d=None: Stream()),
-            ("stream", lambda s: contextlib.nullcontext()),
-            ("current_stream", lambda d=None: Stream()),
-            ("synchronize", lambda d=None: None),
-            ("empty_cache", lambda: None),
-            ("memory_reserved", lambda d=None: 0),
-            ("CUDAGraph", RecordingGraph), ("graph", graph)):
-        monkeypatch.setattr(cuda, name, value)
-    monkeypatch.setattr(diffusion.ReverseChain, "device",
-                        property(lambda self: torch.device("cuda")))
-    real = diffusion.ChainGraphs.__init__
-
-    def init(self, step, chain, unroll, key):
-        def recorded(ch):
-            if RecordingGraph.capturing:
-                RecordingGraph.capturing[-1].steps.append((step, ch))
-                step(dataclasses.replace(
-                    ch, inputs=diffusion._clone(ch.inputs),
-                    state=diffusion._clone(ch.state)))
-            else:
-                step(ch)
-        real(self, recorded, chain, unroll, key)
-
-    monkeypatch.setattr(diffusion.ChainGraphs, "__init__", init)
-
-
 @pytest.mark.parametrize("unroll", [1, 5, 12, 20])
 def test_runner_replays_and_reuses_its_graphs(monkeypatch, unroll):
     batch, noise, com = chain_inputs(seed=5)
@@ -270,26 +210,49 @@ def test_runner_replays_and_reuses_its_graphs(monkeypatch, unroll):
     second = {k: v[::-1].copy() for k, v in noise.items()}
     want = [base.sample_given_receptor(batch, noise=n, **kw)
             for n in (noise, second)]
-    recording_capture(monkeypatch)
+    recorded_graphs(monkeypatch)
     model = with_unroll(base, unroll)
-    graphs = []
+    steps = []
+    real_step = PharmacophoreDiffusion.chain_step
+
+    def counted_step(self, chain):
+        steps.append(1)
+        real_step(self, chain)
+
+    monkeypatch.setattr(PharmacophoreDiffusion, "chain_step", counted_step)
+    runners = []
     for n, w in zip((noise, second), want):
         trace.reset()
         chain = model.chain_setup(batch, noise=n, **kw)
         g = model._graphs_for(chain, unroll)
         g.run()
         got = model.chain_result(g.chain)
-        graphs.append(g)
+        runners.append(g)
         u = min(unroll, T)
         assert trace.counters()["chain.replays"] == \
             T // u + int(T % u > 0)
-        assert [len(x.steps) for x, _, _ in g.graphs] == \
-            [u] + ([T % u] if T % u else [])
         for key in w:
             assert torch.equal(got[key], w[key]), key
-    # the second chain (same shapes) ran in the first one's graphs
-    assert graphs[0] is graphs[1]
-    # another signature captures anew
+        # each graph holds its steps: U, and the T mod U left
+        g.chain.state["i"].zero_()
+        held = []
+        for graph, _, _ in g.graphs:
+            steps.clear()
+            graph.replay()
+            held.append(len(steps))
+        assert held == [u] + ([T % u] if T % u else [])
+    # the second chain (same shapes) ran in the first one's graphs, the
+    # only ones kept
+    assert runners[0] is runners[1]
+    assert list(model._chain_graphs.graphs.values()) == [runners[0]]
+    # another signature captures anew, and the old graphs go
     chain = model.chain_setup(batch, noise=noise, init_pharm_com=com,
                               pocket_group_size=1)
-    assert model._graphs_for(chain, unroll) is not graphs[0]
+    other = model._graphs_for(chain, unroll)
+    assert other is not runners[0]
+    assert list(model._chain_graphs.graphs.values()) == [other]
+    # a weight in new storage captures anew
+    param = next(model.parameters())
+    param.data = param.data.clone()
+    assert model._graphs_for(chain, unroll) is not other
+    assert len(model._chain_graphs.graphs) == 1

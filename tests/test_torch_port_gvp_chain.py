@@ -9,6 +9,7 @@ which `test_torch_port_modules.py` holds to the JAX package."""
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from pharmaforge_tpu_torch.models.conv import message_specs
 from pharmaforge_tpu_torch.models.dynamics import NoisePredictionBlock
 from pharmaforge_tpu_torch.models.gvp import (

@@ -39,6 +39,7 @@ import pytest
 import torch
 import yaml
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import generate_pharmacophores as jgen
 from pharmaforge_tpu.config import cmdline as jcmd
 from pharmaforge_tpu.interop import torch_import as jinterop

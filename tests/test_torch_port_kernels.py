@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from pharmaforge_tpu.ops.pallas.knn_select import (
     knn_select as jax_knn_select,
     knn_select_reference as jax_knn_reference,

@@ -11,9 +11,10 @@ trainer's chunk path, on the CPU.
   rtol 1e-5, each weight leaf within 2e-4 max|b| + 2e-5 after 3 steps
   (the train-step tolerance of test_torch_port_train.py);
 * the runner (`TrainGraphs`: warm-up, capture, input copies, the
-  accumulation phase, kept graphs) with a stand-in for CUDA graphs that
-  records the captured steps and replays them: bit-equal to the eager
-  calls; the real graphs run in the card tests (test_torch_port_cuda.py);
+  accumulation phase, kept graphs) with the stand-in for CUDA graphs of
+  tests/recorded_graphs.py, which records a capture's body and replays
+  it: bit-equal to the eager calls; the real graphs run in the card tests
+  (test_torch_port_cuda.py);
 * `Trainer.fit` at `steps_per_call: 3` over two prot buckets follows the
   JAX trainer's chunk rule (trainer.py:344-393): calls grouped per padded
   shape with leftovers single at the epoch's end, validation and sampling
@@ -23,7 +24,6 @@ trainer's chunk path, on the CPU.
 JAX matmuls run in full fp32 (tests/conftest.py).
 """
 
-import contextlib
 import json
 
 import numpy as np
@@ -32,6 +32,7 @@ import optax
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from pharmaforge_tpu.data.batch import stack_batches as jax_stack
 from pharmaforge_tpu.models.diffusion import (
     DiffusionConfig as JaxConfig,
@@ -56,7 +57,6 @@ from pharmaforge_tpu_torch.models.diffusion import (
     DiffusionConfig,
     PharmacophoreDiffusion,
 )
-from pharmaforge_tpu_torch.training import train_state
 from pharmaforge_tpu_torch.training.optim import Adam
 from pharmaforge_tpu_torch.training.train_state import (
     multi_train_step,
@@ -65,6 +65,7 @@ from pharmaforge_tpu_torch.training.train_state import (
 from pharmaforge_tpu_torch.training.trainer import Trainer
 from pharmaforge_tpu_torch.utils import trace
 from tests.conftest import make_complex_batch
+from tests.recorded_graphs import RecordedGraph, recorded_graphs
 from tests.test_torch_port_train import (
     ELEMENTS,
     PH_TYPES,
@@ -74,19 +75,6 @@ from tests.test_torch_port_train import (
 )
 
 K = 3
-
-
-@pytest.fixture
-def one_thread():
-    """One intra-op thread: the CPU's threaded reductions sum in an order
-    that can change from run to run, and the bit-equal checks compare
-    two runs of the same arithmetic."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
 
 
 def small_kw(**kw):
@@ -143,7 +131,7 @@ def assert_same_state(a, b):
 # ------------------------------------------------- K steps against K singles
 
 @pytest.mark.parametrize("accumulate", [1, 2])
-def test_multi_step_matches_sequential(one_thread, accumulate):
+def test_multi_step_matches_sequential(accumulate):
     batches = [port_batch(b) for b in jax_batches()]
     base = port_model(dropout=0.1)
     seq, multi = clone_setup(base, accumulate), clone_setup(base, accumulate)
@@ -209,71 +197,7 @@ def test_multi_step_matches_jax(accumulate):
 
 # ----------------------------------------- the runner, with recorded graphs
 
-class RecordedGraph:
-    """Stands in for `torch.cuda.CUDAGraph`: a capture records the
-    runner's K steps (their host code runs, their tensor effects are
-    undone, as a capture enqueues nothing); a replay reruns them."""
-
-    capturing = []
-    made = 0
-
-    def __init__(self):
-        RecordedGraph.made += 1
-        self.body = None
-
-    def register_generator_state(self, generator):
-        self.generator = generator
-
-    def replay(self):
-        self.body()
-
-
-def recorded_capture(monkeypatch):
-    """torch.cuda replaced by CPU stand-ins for the runner's calls, and
-    every device taken as captured."""
-    class Stream:
-        def wait_stream(self, other):
-            pass
-
-    @contextlib.contextmanager
-    def graph(g, pool=None):
-        RecordedGraph.capturing.append(g)
-        try:
-            yield
-        finally:
-            RecordedGraph.capturing.pop()
-
-    cuda = torch.cuda
-    for name, value in (
-            ("device", lambda d=None: contextlib.nullcontext()),
-            ("Stream", lambda d=None: Stream()),
-            ("stream", lambda s: contextlib.nullcontext()),
-            ("current_stream", lambda d=None: Stream()),
-            ("synchronize", lambda d=None: None),
-            ("empty_cache", lambda: None),
-            ("memory_reserved", lambda d=None: 0),
-            ("graph_pool_handle", lambda: "pool"),
-            ("CUDAGraph", RecordedGraph), ("graph", graph)):
-        monkeypatch.setattr(cuda, name, value)
-    monkeypatch.setattr(train_state, "captured", lambda device: True)
-    real_body = train_state.TrainGraphs._body
-
-    def body(self):
-        g = RecordedGraph.capturing[-1]
-        g.body = lambda: real_body(self)
-        state = train_state._state_tensors(self.model, self.optimizer)
-        saved = [t.detach().clone() for t in state]
-        rng = self.generator.get_state()
-        real_body(self)
-        with torch.no_grad():
-            for t, s in zip(state, saved):
-                t.copy_(s)
-        self.generator.set_state(rng)
-
-    monkeypatch.setattr(train_state.TrainGraphs, "_body", body)
-
-
-def test_runner_replays_match_eager_calls(one_thread, monkeypatch):
+def test_runner_replays_match_eager_calls(monkeypatch):
     """Calls of K = 2, 2, 1, 2, 1 at accumulate 3 (phases 0, 2, 1, 2, 1)
     and a learning-rate cut: the recorded runner bit-equal to the eager
     calls, one graph per (K, phase), kept graphs reused, every replay
@@ -285,7 +209,7 @@ def test_runner_replays_match_eager_calls(one_thread, monkeypatch):
     eager = clone_setup(base, accumulate=3)
     want = [multi_train_step(*eager[:2], tbatch.stack_batches(bs), eager[2],
                              lr) for bs, lr in calls]
-    recorded_capture(monkeypatch)
+    recorded_graphs(monkeypatch)
     RecordedGraph.made = 0
     trace.reset()
     runner = clone_setup(base, accumulate=3)
@@ -296,7 +220,7 @@ def test_runner_replays_match_eager_calls(one_thread, monkeypatch):
             assert np.array_equal(got[key], w[key]), (i, key)
         assert trace.counters()["train.replays"] == i + 1
     assert_same_state(eager, runner)
-    kept = runner[1].train_graphs
+    kept = runner[1].train_graphs.graphs
     assert sorted((g.k, g.phase) for g in kept.values()) == \
         [(1, 1), (2, 0), (2, 2)]
     # the last two calls replayed kept graphs
@@ -310,7 +234,7 @@ def test_runner_replays_match_eager_calls(one_thread, monkeypatch):
     assert len(kept) == 1 and RecordedGraph.made == 4
 
 
-def test_stale_batches_fault_misses(one_thread, monkeypatch):
+def test_stale_batches_fault_misses(monkeypatch):
     """The runner with its input copy dropped (a planted fault) replays
     the first call's batches: its losses leave the eager ones'."""
     base = port_model(n_convs=2)
@@ -319,11 +243,11 @@ def test_stale_batches_fault_misses(one_thread, monkeypatch):
     want = [multi_train_step(*eager[:2], tbatch.stack_batches(pool[i:i + 2]),
                              eager[2], 2e-3)["train total loss"]
             for i in (0, 2)]
-    recorded_capture(monkeypatch)
+    recorded_graphs(monkeypatch)
     runner = clone_setup(base)
     multi_train_step(*runner[:2], tbatch.stack_batches(pool[0:2]),
                      runner[2], 2e-3)
-    graphs, = runner[1].train_graphs.values()
+    graphs, = runner[1].train_graphs.graphs.values()
     monkeypatch.setattr(graphs, "load", lambda *a: None)
     stale = multi_train_step(*runner[:2], tbatch.stack_batches(pool[2:4]),
                              runner[2], 2e-3)["train total loss"]

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from pharmaforge_tpu import native as jnative
 from pharmaforge_tpu.data.dataset import (
     ProteinPharmacophoreDataset as JaxDataset,

@@ -33,6 +33,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from pharmaforge_tpu.data.batch import PharmComplexBatch as JaxBatch
 from pharmaforge_tpu.models import conv as jconv
 from pharmaforge_tpu.models import edges as jedges

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from pharmaforge_tpu.ops.pallas import pp_message as jppm
 from pharmaforge_tpu_torch.ops import pp_message as ppm
 from pharmaforge_tpu_torch.utils import trace

@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 import yaml
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from pharmaforge_tpu.preprocessing import crossdocked as jcd
 from pharmaforge_tpu.preprocessing import receptor_utils as jru
 from pharmaforge_tpu_torch.cli import process_crossdocked as tproc

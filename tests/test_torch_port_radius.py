@@ -26,6 +26,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import chip_smoke
 from pharmaforge_tpu_torch.models import dynamics as dynamics_mod
 from pharmaforge_tpu_torch.models.conv import message_specs
@@ -176,7 +177,6 @@ def tiny_radius_cell(config: dict) -> manifest.Cell:
 def chain_gaps(cell: manifest.Cell, control: bool = False) -> dict:
     """The cell's set-up, two calls and its comparison (`calibrate.py`'s
     readings): {"program": gaps[, "control": the fp8 reference's gaps]}."""
-    torch.set_num_threads(1)
     return dict(calibrate.readings(cell, SEED, 2, CPU, control=control,
                                    fault=False))
 

@@ -18,15 +18,13 @@ sampling chain on the radius graph (`pf_k` 0) runs in place of the dense
   chain of the same M reuses the graphs, one of another M captures anew.
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from pharmaforge_tpu_torch.data.batch import concat_batches, tile_pocket
-from pharmaforge_tpu_torch.models import diffusion
 from pharmaforge_tpu_torch.models.edges import (
     GroupedEdgeData,
     build_pp_edge,
@@ -35,7 +33,7 @@ from pharmaforge_tpu_torch.models.edges import (
     radius_slots,
 )
 from pharmaforge_tpu_torch.ops.neighbors import radius_mask
-from pharmaforge_tpu_torch.utils import trace
+from pharmaforge_tpu_torch.utils import graphs, trace
 from portbench.workloads import common, sample_radius
 # by its own name: pytest puts this directory on the path (a `tests`
 # package installed elsewhere may shadow `tests.`)
@@ -227,10 +225,10 @@ def test_the_chain_signature_holds_the_slot_count(weights):
     big = chain_of(model, stacked_batch(config, 3, [90, 90], 2, 96), 2)
     m = one.inputs["pf_slots"]
     assert m == two.inputs["pf_slots"] < big.inputs["pf_slots"] <= 96
-    spec = diffusion._spec(one.inputs)
+    spec = graphs.spec(one.inputs)
     assert ("pf_slots", m) in spec
-    assert spec == diffusion._spec(two.inputs)
-    assert spec != diffusion._spec(big.inputs)
+    assert spec == graphs.spec(two.inputs)
+    assert spec != graphs.spec(big.inputs)
     knn = common.program_model(dict(config, model=dict(config["model"],
                                                        pf_k=5)),
                                weights, CPU, "sampling")
@@ -290,9 +288,7 @@ def test_a_radius_call_launches_k4_on_its_slots(dev):
 def test_a_captured_radius_step_counts_no_pairs(dev):
     config, model = card_model(dev, "float32")
     chain = chain_of(model, stacked_batch(config, 2, [230, 230], 3, 256), 3)
-    copy = lambda: dataclasses.replace(  # noqa: E731
-        chain, inputs=diffusion._clone(chain.inputs),
-        state=diffusion._clone(chain.state))
+    copy = lambda: graphs.stage(chain)  # noqa: E731
     eager, warm, graphed = copy(), copy(), copy()
     model.chain_step(eager)
     side = torch.cuda.Stream()
@@ -327,14 +323,15 @@ def test_graphs_are_kept_for_the_same_slot_count(dev):
             batch, torch.Generator(device=dev).manual_seed(seed),
             pocket_group_size=3)
         torch.cuda.synchronize()
-        return model._chain_graphs.key, \
+        (key, runner), = model._chain_graphs.graphs.items()
+        return key, runner.chain.inputs["pf_slots"], \
             trace.counters()["chain.captures"] - before
 
-    first, captured = sample([230, 230], 1)
-    again, recaptured = sample([230, 230], 2)
-    other, moved = sample([120, 120], 3)
+    first, m_first, captured = sample([230, 230], 1)
+    again, _, recaptured = sample([230, 230], 2)
+    other, m_other, moved = sample([120, 120], 3)
     assert captured == 1 and recaptured == 0 and moved == 1
     assert first == again != other
-    slots = dict(first[0])["pf_slots"], dict(other[0])["pf_slots"]
+    slots = m_first, m_other
     assert slots[0] != slots[1]
     assert all(s % 32 == 0 and s <= 256 for s in slots)

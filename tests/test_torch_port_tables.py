@@ -23,6 +23,7 @@ import jax
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from pharmaforge_tpu.data.batch import PharmComplexBatch as JaxBatch
 from pharmaforge_tpu.models.diffusion import (
     DiffusionConfig as JaxConfig,

@@ -4,8 +4,8 @@ on the CPU, at a tiny size.
 * Under `torch.profiler` a `sample_stacked`, a `sample_pocket`, a
   `train_call` fed through `prefetch` and a `validate` each open one root
   "pf." span with their phases nested inside it, eager and (with the
-  recording stand-ins for CUDA graphs of `test_torch_port_graphs.py` and
-  `test_torch_port_evalstep.py`) through the graph runners;
+  stand-in for CUDA graphs of `tests/recorded_graphs.py`) through the
+  graph runners;
 * the same calls without a profiler enter no record function and leave
   no span in the ring;
 * the ring holds one "loader.pack" per batch a prefetcher hands over,
@@ -24,6 +24,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from pharmaforge_tpu_torch.config.load_from_config import (
     data_module_from_config,
     model_from_config,
@@ -36,8 +37,7 @@ from pharmaforge_tpu_torch.training.optim import Adam
 from pharmaforge_tpu_torch.training.sampling import PocketSampler
 from pharmaforge_tpu_torch.training.trainer import Trainer
 from pharmaforge_tpu_torch.utils import trace
-from tests.test_torch_port_graphs import recording_capture
-from tests.test_torch_port_evalstep import recorded_eval
+from tests.recorded_graphs import recorded_graphs
 from tests.test_torch_port_train import tiny_config
 
 T = 10                 # tiny_config's n_timesteps
@@ -97,12 +97,12 @@ def slowly(items, pause_s=0.02):
 
 def run_call(kind: str, setup, graphed: bool, monkeypatch):
     """One public call of `kind` on `setup`; with `graphed`, through the
-    graph runners with the recording stand-ins for CUDA graphs."""
+    graph runners with the stand-in for CUDA graphs."""
     config, model, dm, _ = setup
     if kind in ("sample_stacked", "sample_pocket"):
         if graphed:
-            recording_capture(monkeypatch)
-            model._chain_graphs = None
+            recorded_graphs(monkeypatch)
+            model._chain_graphs.clear()
         pockets = [dm.val_dataset[i] for i in range(2)]
         sampler = PocketSampler(model, fixed_prot_slots=SLOTS, device="cpu")
         gen = torch.Generator().manual_seed(5)
@@ -110,7 +110,7 @@ def run_call(kind: str, setup, graphed: bool, monkeypatch):
             return sampler.sample_stacked(pockets, [[4, 5, 6]] * 2, gen)
         return sampler.sample_pocket(pockets[0], [4, 5, 6], gen)
     if graphed:
-        recorded_eval(monkeypatch)
+        recorded_graphs(monkeypatch)
     trainer = make_trainer(setup)
     if kind == "validate":
         return trainer.validate(dm)

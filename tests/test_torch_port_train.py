@@ -30,6 +30,7 @@ import optax
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from pharmaforge_tpu.analysis import metrics as jmetrics
 from pharmaforge_tpu.data import batch as jbatch
 from pharmaforge_tpu.data import dataset as jdataset
